@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (seaweedfs_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
+                          [--mesh-volumes N] [--mesh-mib N]
 
 Builds the port's CUDA kernels from the sources in this checkout, then:
 
@@ -11,6 +12,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    the card: encode (4x10), rebuild for lost {0,3,7,9}, {10,11,12,13},
    {2,11} and {5}, rows=1, rows=k=16, the pipeline's (8, 10, 1 MiB)
    block, a ragged L = 1 MiB + 3 and a strided (B, 14, L)[:, :10] view;
+   and its stacked entry (K2's port) writing into a strided
+   (B, 14, L)[:, 10:] view at a ragged L = 264 * 512 + 5;
 3. runs the flagship steps of models/ec_model.py (encode, rebuild of
    lost {0,3,7,9}, verify) on 10 shards x 256 MiB resident on the card,
    checks each against the plain version and times it;
@@ -20,8 +23,13 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    shards are deleted and rebuilt by rebuild_ec_files, the .dat is
    decoded back by write_dat_file, and every window is verified by
    batch.verify_block before and after one flipped byte;
-5. times the kernel and its plain version at the pipeline's block shape
-   and prints one JSON line describing each kernel.
+5. times the kernel and its plain version at the pipeline's block shape;
+6. runs the multi-device mesh path (parallel/mesh.py) on a one-rank NCCL
+   group: full_cycle_step on --mesh-volumes x 10 shards x --mesh-mib MiB
+   made from --seed, then batched_verify clean and after one flipped
+   parity byte, each held against the plain version; times the stacked
+   entry at the rank's encode and rebuild blocks, and prints one JSON
+   line describing each kernel.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -50,8 +58,11 @@ from seaweedfs_tpu_torch.ec import pipeline as pl
 from seaweedfs_tpu_torch.ec.encoder_torch import device_consts
 from seaweedfs_tpu_torch.models import ec_model
 from seaweedfs_tpu_torch.ops import _build, gf256_cuda
-from seaweedfs_tpu_torch.ops.gf256_cuda import (gf256_transform,
-                                                gf256_transform_reference)
+from seaweedfs_tpu_torch.ops.gf256_cuda import (
+    gf256_stacked_transform, gf256_stacked_transform_reference,
+    gf256_transform, gf256_transform_reference)
+from seaweedfs_tpu_torch.parallel import dist as pdist
+from seaweedfs_tpu_torch.parallel import mesh as pmesh
 from seaweedfs_tpu_torch.storage import types as st
 from seaweedfs_tpu_torch.storage.needle_map import pack_entry
 
@@ -106,6 +117,14 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Max absolute byte difference of two uint8 tensors of one shape."""
+    check(a.shape == b.shape, f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((torch.maximum(a, b) - torch.minimum(a, b)).max().item())
 
 
 def bound(rows: int, k: int, bsz: int, length: int) -> dict:
@@ -165,11 +184,48 @@ def phase_kernel_vs_plain(dev: torch.device, seed: int) -> int:
         got = gf256_transform(consts, x)
         want = gf256_transform_reference(consts, x)
         sync(dev)
-        err = int((got.int() - want.int()).abs().max().item())
+        err = abs_err(got, want)
         max_err = max(max_err, err)
         print(f"  kernel vs plain: {name}: max_abs_err={err}")
         check(got.shape == want.shape and err == 0,
               f"kernel differs from its plain version: {name}")
+    return max_err
+
+
+def phase_stacked_vs_plain(dev: torch.device, seed: int) -> int:
+    """The stacked entry (K2's port) byte-equal to its plain version on a
+    ragged L = 264 * 512 + 5, writing into the strided parity rows
+    (B, 14, L)[:, 10:] of a block and into a fresh output; returns the
+    max absolute byte difference."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    length = 264 * 512 + 5
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    x = rand(3, gf.DATA_SHARDS, length)
+    max_err = 0
+    for name, coeff in (("encode 4x10", gf.parity_matrix()),
+                        (f"rebuild lost {LOST}",
+                         gf.shard_rows(LOST, present_for(LOST)))):
+        consts = device_consts(coeff, dev)
+        block = rand(3, gf.TOTAL_SHARDS, length)
+        plain = block.clone()
+        got = gf256_stacked_transform(consts, x,
+                                      out=block[:, gf.DATA_SHARDS:])
+        gf256_stacked_transform_reference(consts, x,
+                                          out=plain[:, gf.DATA_SHARDS:])
+        fresh = gf256_stacked_transform(consts, x)
+        sync(dev)
+        err = max(abs_err(block, plain),
+                  abs_err(fresh, plain[:, gf.DATA_SHARDS:]))
+        max_err = max(max_err, err)
+        print(f"  stacked vs plain: {name}, out=(3, 14, {length})[:, 10:] "
+              f"and a fresh output: max_abs_err={err}")
+        check(got.data_ptr() == block[:, gf.DATA_SHARDS:].data_ptr()
+              and err == 0, f"stacked entry differs from its plain "
+              f"version: {name}")
     return max_err
 
 
@@ -430,23 +486,17 @@ def check_volume_counts(seen: dict) -> int:
     return seen["launches_end"] - seen["launches_start"]
 
 
-# -- phase 5: the kernels line -----------------------------------------------
+# -- phase 5: kernel timing ---------------------------------------------------
 
-def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(seed + 2)
-    bsz, k, length = ecb.DEFAULT_BATCH_WINDOWS, gf.DATA_SHARDS, MIB
-    x = torch.randint(0, 256, (bsz, k, length), dtype=torch.uint8,
-                      device=dev, generator=gen)
-    consts = device_consts(gf.parity_matrix(), dev)
-    rows = consts.shape[0]
-    ms = cuda_ms(lambda: gf256_transform(consts, x), 50)
-    plain_ms = cuda_ms(lambda: gf256_transform_reference(consts, x), 5)
-    b = bound(rows, k, bsz, length)
+def report_timing(label: str, ms: float, plain_ms: float, b: dict,
+                  dev: torch.device, card: str) -> dict:
+    """Print a kernel's time beside its bound and the bitplane form's
+    instruction mix per pipe; returns the kernels-line numbers."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     int_ms = b["int_pipe_ops"] / (sms * INT32_LANES_PER_SM * clock_hz) * 1e3
     fma_ms = b["fma_pipe_ops"] / (sms * FMA_LANES_PER_SM * clock_hz) * 1e3
-    print(f"  pipeline block ({bsz}, {k}, {length}) encode: kernel "
+    print(f"  {label}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
           f"ms by {b['bound_by']} ({b['bytes']} bytes; GF(2) bit-matrix "
           f"int8 ops {b['ops_ms']:.4f} ms), share {b['bound_ms'] / ms:.3f}; "
@@ -459,6 +509,196 @@ def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
             "bound_by": b["bound_by"]}
 
 
+def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    bsz, k, length = ecb.DEFAULT_BATCH_WINDOWS, gf.DATA_SHARDS, MIB
+    x = torch.randint(0, 256, (bsz, k, length), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    consts = device_consts(gf.parity_matrix(), dev)
+    ms = cuda_ms(lambda: gf256_transform(consts, x), 50)
+    plain_ms = cuda_ms(lambda: gf256_transform_reference(consts, x), 5)
+    return report_timing(f"pipeline block ({bsz}, {k}, {length}) encode",
+                         ms, plain_ms, bound(consts.shape[0], k, bsz, length),
+                         dev, card)
+
+
+# -- phase 6: the mesh path --------------------------------------------------
+
+MESH_LOST = (0, 11, 12, 13)
+
+
+def phase_mesh(dev: torch.device, seed: int, volumes: int, n: int) -> dict:
+    """parallel/mesh.py on the current process group: full_cycle_step on
+    (volumes, 10, n) made from `seed`, then batched_verify clean and after
+    one flipped byte of parity row 12 of volume 1. The launch counts are
+    read right after those calls; then each result is held against the
+    plain version. Returns the counts and the tensors the timing reuses."""
+    mesh = pmesh.make_mesh()
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    data = torch.randint(0, 256, (volumes, gf.DATA_SHARDS, n),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    flip = (1, 12, n // 2)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = (gf256_cuda.launches, gf256_cuda.stacked_launches)
+    per_call = []
+    t0 = time.perf_counter()
+    encoded, rebuilt = pmesh.full_cycle_step(mesh, data, lost_rows=MESH_LOST)
+    sync(dev)
+    t1 = time.perf_counter()
+    per_call.append(gf256_cuda.stacked_launches - before[1])
+    clean = pmesh.batched_verify(mesh, encoded).tolist()
+    t2 = time.perf_counter()
+    per_call.append(gf256_cuda.stacked_launches - before[1] - sum(per_call))
+    encoded[flip] ^= 0x01
+    flipped = pmesh.batched_verify(mesh, encoded).tolist()
+    encoded[flip] ^= 0x01
+    sync(dev)
+    per_call.append(gf256_cuda.stacked_launches - before[1] - sum(per_call))
+    seen = {"seconds": (t1 - t0, t2 - t1, time.perf_counter() - t2),
+            "launches": gf256_cuda.launches - before[0],
+            "stacked_launches": gf256_cuda.stacked_launches - before[1],
+            "per_call": per_call, "mesh": tuple(mesh.shape)}
+    if dev.type == "cuda":
+        seen["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+    parity = device_consts(gf.parity_matrix(), dev)
+    use = present_for(list(MESH_LOST))
+    rebuild = device_consts(gf.shard_rows(list(MESH_LOST), use), dev)
+    err = abs_err(encoded[:, :gf.DATA_SHARDS], data)
+    want = gf256_stacked_transform_reference(parity, data)
+    err = max(err, abs_err(encoded[:, gf.DATA_SHARDS:], want))
+    want_bad = (want != encoded[:, gf.DATA_SHARDS:]).sum(dim=(1, 2)).tolist()
+    del want
+    survivors = encoded[:, use]
+    want = gf256_stacked_transform_reference(rebuild, survivors)
+    err = max(err, abs_err(rebuilt, want))
+    check(err == 0, f"mesh path differs from the plain version by {err}")
+    check(torch.equal(rebuilt, encoded[:, list(MESH_LOST)]),
+          f"full_cycle_step did not restore shards {MESH_LOST}")
+    del want
+    want_flipped = [0] * volumes
+    want_flipped[flip[0]] = 1
+    check(clean == want_bad == [0] * volumes,
+          f"clean batched_verify {clean}, plain version {want_bad}")
+    check(flipped == want_flipped,
+          f"batched_verify after one flipped parity byte: {flipped}")
+    peak = (f"{seen['peak_bytes']} bytes" if "peak_bytes" in seen
+            else "not measured")
+    print(f"  mesh {seen['mesh']} ('vol','shard'): full_cycle_step on "
+          f"({volumes}, 10, {n}) lost {MESH_LOST}, batched_verify "
+          f"{clean} then {flipped} after one flip; host seconds (first "
+          f"calls: NCCL and DTensor set-up included) full_cycle_step "
+          f"{seen['seconds'][0]:.4f}, verify {seen['seconds'][1]:.4f}, "
+          f"verify {seen['seconds'][2]:.4f}; every result equals the plain "
+          f"version "
+          f"(max_abs_err {err}); peak device memory in those calls {peak}")
+    seen.update(max_abs_err=err, data=data, encoded=encoded,
+                survivors=survivors, parity=parity, rebuild=rebuild,
+                device_mesh=mesh)
+    return seen
+
+
+# the profiler's activity types that occupy the device itself; runtime
+# calls, annotations and flow events are the host's side of them
+DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy(events) -> dict:
+    """events: (activity_type, start_ns, end_ns, name) of a trace. Over the
+    device activities alone: the union of their spans (busy), the device
+    window from the first one's start to the last one's end, the idle
+    share of that window, and the time and count by name."""
+    spans = sorted((start, end, name) for kind, start, end, name in events
+                   if kind in DEVICE_ACTIVITIES)
+    busy, reach, by_name = 0, None, {}
+    for start, end, name in spans:
+        total, count = by_name.get(name, (0, 0))
+        by_name[name] = (total + end - start, count + 1)
+        if reach is None or start >= reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    window = reach - spans[0][0] if spans else 0
+    return {"busy_ns": busy, "window_ns": window,
+            "idle_share": 1 - busy / window if window > 0 else None,
+            "by_name": by_name}
+
+
+def trace_events(prof) -> list[tuple]:
+    """(category, start_ns, end_ns, name) of every complete event in a
+    finished torch.profiler trace, read back from its Chrome trace (the
+    category there is the activity type on every torch release; the
+    Python event objects do not carry it on all of them)."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    path = os.path.join(WORK_DIR, "trace.json")
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return [(e.get("cat"), round(float(e["ts"]) * 1e3),
+             round((float(e["ts"]) + float(e["dur"])) * 1e3), e.get("name"))
+            for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def time_mesh_step(mesh, data: torch.Tensor, dev: torch.device) -> None:
+    """Host seconds of full_cycle_step once its set-up is done, and, from
+    a torch.profiler trace of one more call, the device's busy time by
+    kernel and copy and its idle share of the device window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        pmesh.full_cycle_step(mesh, data, lost_rows=MESH_LOST)
+        sync(dev)
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    events = trace_events(prof)
+    d = device_busy(events)
+    idle = (f"{d['idle_share']:.4f}" if d["idle_share"] is not None
+            else "not measured (the trace shows no device activity)")
+    print(f"  full_cycle_step after set-up: {wall:.4f} s host; traced call: "
+          f"device busy {d['busy_ns'] / 1e6:.4f} ms of a "
+          f"{d['window_ns'] / 1e6:.4f} ms device window (first to last "
+          f"kernel or copy), idle share {idle}; activity types "
+          f"{sorted({e[0] for e in events})}")
+    for name, (total, count) in sorted(d["by_name"].items(),
+                                       key=lambda kv: -kv[1][0])[:6]:
+        print(f"    device {total / 1e6:9.4f} ms x{count}: {name[:90]}")
+
+
+def time_mesh_blocks(seen: dict, dev: torch.device, card: str) -> dict:
+    """The stacked entry at the rank's encode block (parity into the
+    strided rows of the encoded block) and rebuild block; returns the
+    encode block's kernels-line numbers."""
+    data, survivors = seen["data"], seen["survivors"]
+    out = seen["encoded"][:, gf.DATA_SHARDS:]
+    parity, rebuild = seen["parity"], seen["rebuild"]
+    bsz, k, n = data.shape
+    ms = cuda_ms(lambda: gf256_stacked_transform(parity, data, out=out), 10)
+    plain_ms = cuda_ms(lambda: gf256_stacked_transform_reference(
+        parity, data, out=out), 2)
+    t = report_timing(f"mesh encode block ({bsz}, {k}, {n}) -> (.., 4, ..)"
+                      f" out=[:, 10:]", ms, plain_ms, bound(4, k, bsz, n),
+                      dev, card)
+    ms = cuda_ms(lambda: gf256_stacked_transform(rebuild, survivors), 10)
+    plain_ms = cuda_ms(lambda: gf256_stacked_transform_reference(
+        rebuild, survivors), 2)
+    report_timing(f"mesh rebuild block ({bsz}, {k}, {n}) lost {MESH_LOST}",
+                  ms, plain_ms, bound(4, k, bsz, n), dev, card)
+    return t
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -466,6 +706,10 @@ def parse_args(argv=None):
                    help="size of the generated .dat (default 1 GiB)")
     p.add_argument("--flagship-mib", type=int, default=256,
                    help="bytes per shard of the flagship steps")
+    p.add_argument("--mesh-volumes", type=int, default=3,
+                   help="volumes of the mesh path's batch")
+    p.add_argument("--mesh-mib", type=int, default=256,
+                   help="bytes per shard of the mesh path")
     return p.parse_args(argv)
 
 
@@ -495,6 +739,7 @@ def main(argv=None) -> int:
 
     print("== phase 2: kernel vs plain version on the card")
     max_err = phase_kernel_vs_plain(dev, args.seed)
+    stacked_err = phase_stacked_vs_plain(dev, args.seed)
 
     print("== phase 3: flagship steps at full width")
     gf256_cuda.launches = 0
@@ -517,6 +762,26 @@ def main(argv=None) -> int:
 
     print("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
+
+    print("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
+    with pdist.init(device="cuda"):
+        gf256_cuda.launches = 0
+        gf256_cuda.stacked_launches = 0
+        mesh = phase_mesh(dev, args.seed, args.mesh_volumes,
+                          args.mesh_mib * MIB)
+        check(mesh["per_call"] == [2, 1, 1] and mesh["launches"] == 0,
+              f"the mesh path launched the stacked entry "
+              f"{mesh['per_call']} times per call (expected [2, 1, 1]: "
+              f"full_cycle_step encode and rebuild, then each verify) and "
+              f"gf256_transform {mesh['launches']} times (expected 0)")
+        print(f"  launches on the mesh path: gf256_stacked_transform "
+              f"{mesh['stacked_launches']} ({mesh['per_call']} per call), "
+              f"gf256_transform {mesh['launches']}")
+        t6 = time_mesh_blocks(mesh, dev, card)
+        del mesh["encoded"], mesh["survivors"]
+        time_mesh_step(mesh["device_mesh"], mesh["data"], dev)
+        del mesh["data"]
+
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
@@ -524,6 +789,14 @@ def main(argv=None) -> int:
         "launches": main_launches, "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "held_against_plain": True}, {
+        "name": "gf256_stacked_transform", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
+        "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:120",
+        "launches": mesh["stacked_launches"],
+        "max_abs_err": max(stacked_err, mesh["max_abs_err"]),
+        "ms": t6["ms"], "plain_ms": t6["plain_ms"],
+        "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],
         "library_ms": None, "held_against_plain": True}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

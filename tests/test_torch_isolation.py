@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port stands alone: importing any of its modules, or
 chip_smoke.py, loads neither jax nor the JAX package (seaweedfs_tpu),
-builds no kernel, and no source file of the port imports either."""
+builds no kernel, creates no process group, and no source file of the
+port imports either."""
 
 import ast
 import json
@@ -48,18 +49,24 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from seaweedfs_tpu_torch.ops import _build\n"
+        "import torch.distributed as dist\n"
         "print(json.dumps({'modules': sorted(sys.modules),\n"
-        "                  'loaded': sorted(_build._loaded)}))\n")
+        "                  'loaded': sorted(_build._loaded),\n"
+        "                  'group': dist.is_initialized()}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "seaweedfs_tpu_torch.ec.pipeline" in report["modules"]
-    assert "chip_smoke" in report["modules"]
+    for mod in ("seaweedfs_tpu_torch.ec.pipeline", "chip_smoke",
+                "seaweedfs_tpu_torch.parallel.mesh",
+                "seaweedfs_tpu_torch.parallel.dist",
+                "seaweedfs_tpu_torch.entry"):
+        assert mod in report["modules"], mod
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == [], leaked
     assert report["loaded"] == []
+    assert report["group"] is False
 
 
 @pytest.mark.parametrize(

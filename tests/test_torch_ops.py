@@ -4,12 +4,18 @@ interpret mode, encoder_jax._apply_bitplanes and the numpy CpuEncoder,
 byte for byte; the wrapper rejects what the CUDA kernel does not take;
 the build module names the right target and reports a failed build.
 
-The CUDA kernel itself runs only on the card: test_kernel_matches_plain
-is marked `gpu` and skips on a host without one
-(`pytest -m gpu tests/test_torch_ops.py` on the card)."""
+The stacked entry (K2's port, gf256_stacked_transform) is held, through
+its plain version, to the Pallas kernel K2 in interpret mode, and its
+out= contract is checked: it writes into a strided view and nowhere
+else, and rejects bad shapes, types, devices and overlap.
+
+The CUDA kernel itself runs only on the card: the tests marked `gpu`
+skip on a host without one (`pytest -m gpu tests/test_torch_ops.py` on
+the card)."""
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,10 +23,12 @@ import torch
 from seaweedfs_tpu.ec import gf as ref_gf
 from seaweedfs_tpu.ec.encoder_cpu import CpuEncoder
 from seaweedfs_tpu.ec.encoder_jax import _apply_bitplanes
+from seaweedfs_tpu.ops import gf256_pallas
 from seaweedfs_tpu.ops.gf256_pallas import gf256_matmul_pallas
 from seaweedfs_tpu_torch.ops import _build, gf256_cuda
-from seaweedfs_tpu_torch.ops.gf256_cuda import (gf256_transform,
-                                                gf256_transform_reference)
+from seaweedfs_tpu_torch.ops.gf256_cuda import (
+    gf256_stacked_transform, gf256_stacked_transform_reference,
+    gf256_transform, gf256_transform_reference)
 
 
 def _present(lost):
@@ -141,6 +149,85 @@ def test_wrapper_rejects_bad_inputs(case):
             gf256_transform_reference(*args)
 
 
+@pytest.mark.parametrize("name,b,wm,bm", [
+    ("encode", 1, 1, 256), ("encode", 3, 5, 2), ("lost0379", 3, 5, 2),
+    ("lost0379", 1, 264, 256)])
+def test_stacked_plain_matches_pallas_k2_interpret(name, b, wm, bm):
+    """K2 through gf256_stacked_transform in interpret mode; wm = 264
+    makes K2 fall back to a gcd block size (the CUDA kernel has no block
+    quantum, so the port has nothing to fall back on)."""
+    coeff = COEFFS[name]
+    rng = np.random.default_rng(wm)
+    data = rng.integers(0, 256, (b, 10, wm * 512)).astype(np.uint8)
+    want = np.asarray(gf256_pallas.words_to_u8(
+        gf256_pallas.gf256_stacked_transform(
+            ref_gf.bitplane_constants(coeff),
+            gf256_pallas.u8_to_words(jnp.asarray(data)), block_bm=bm,
+            interpret=True)))
+    x = torch.from_numpy(data)
+    assert np.array_equal(
+        gf256_stacked_transform_reference(_consts(coeff), x).numpy(), want)
+    assert np.array_equal(gf256_stacked_transform(_consts(coeff), x).numpy(),
+                          want)
+
+
+@pytest.mark.parametrize("fn", [gf256_stacked_transform,
+                                gf256_stacked_transform_reference])
+def test_stacked_writes_into_a_strided_view_and_nowhere_else(fn):
+    rng = np.random.default_rng(5)
+    consts = _consts(COEFFS["encode"])
+    x = torch.from_numpy(rng.integers(0, 256, (4, 10, 999)).astype(np.uint8))
+    block = torch.from_numpy(rng.integers(0, 256, (4, 14, 999)
+                                          ).astype(np.uint8))
+    before = block.clone()
+    got = fn(consts, x, out=block[:, 10:])
+    assert got.data_ptr() == block[:, 10:].data_ptr()
+    assert torch.equal(block[:, :10], before[:, :10])
+    assert torch.equal(block[:, 10:], gf256_transform_reference(consts, x))
+    # the data rows and the parity rows of one block interleave in memory
+    # but share no byte: parity straight into the block is allowed
+    fn(consts, block[:, :10], out=block[:, 10:])
+    assert torch.equal(block[:, 10:],
+                       gf256_transform_reference(consts, block[:, :10]))
+
+
+def test_stacked_cpu_tensors_count_no_launch():
+    before = (gf256_cuda.launches, gf256_cuda.stacked_launches)
+    gf256_stacked_transform(_consts(COEFFS["encode"]),
+                            torch.zeros((1, 10, 64), dtype=torch.uint8))
+    assert (gf256_cuda.launches, gf256_cuda.stacked_launches) == before
+
+
+@pytest.mark.parametrize("case", [
+    "out_dtype", "out_not_tensor", "out_rows", "out_length", "out_device",
+    "out_last_axis_strided", "out_is_x", "out_rows_of_x",
+    "out_partial_row_of_x"])
+def test_stacked_rejects_bad_out(case):
+    consts = _consts(COEFFS["encode"])
+    x = torch.zeros((2, 10, 32), dtype=torch.uint8)
+    big = torch.zeros((2, 14, 40), dtype=torch.uint8)
+    out, exc = {
+        "out_dtype": (torch.zeros((2, 4, 32), dtype=torch.int32), TypeError),
+        "out_not_tensor": (np.zeros((2, 4, 32), np.uint8), TypeError),
+        "out_rows": (torch.zeros((2, 5, 32), dtype=torch.uint8), ValueError),
+        "out_length": (torch.zeros((2, 4, 31), dtype=torch.uint8),
+                       ValueError),
+        "out_device": (torch.empty((2, 4, 32), dtype=torch.uint8,
+                                   device="meta"), ValueError),
+        "out_last_axis_strided": (torch.zeros((2, 4, 64), dtype=torch.uint8
+                                              )[..., ::2], ValueError),
+        "out_is_x": (x[:, :4], ValueError),
+        "out_rows_of_x": (x[:, 3:7], ValueError),
+        # row 9 of out shares bytes 8-31 with row 9 of x
+        "out_partial_row_of_x": (big[:, 9:13, 8:], ValueError),
+    }[case]
+    if case == "out_partial_row_of_x":
+        x = big[:, :10, :32]
+    for fn in (gf256_stacked_transform, gf256_stacked_transform_reference):
+        with pytest.raises(exc):
+            fn(consts, x, out=out)
+
+
 def test_build_targets_hopper_and_hashes_the_source(monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cmd = _build.nvcc_command("gf256_transform", "/tmp/x.so")
@@ -191,3 +278,34 @@ def test_kernel_matches_plain():
                            gf256_transform_reference(consts, block[:, :10]))
     torch.cuda.synchronize()
     assert gf256_cuda.launches == before + 5 * len(COEFFS)
+
+
+@pytest.mark.gpu
+def test_stacked_kernel_matches_plain():
+    """On the card: the stacked entry equals its plain version, byte for
+    byte, into a fresh output and into the strided parity rows of a
+    (B, 14, L) block, at a ragged L, and counts its own launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    before = (gf256_cuda.launches, gf256_cuda.stacked_launches)
+    calls = 0
+    for coeff in (COEFFS["encode"], COEFFS["lost0379"]):
+        consts = _consts(coeff).to(dev)
+        for shape in ((3, 10, 264 * 512 + 5), (1, 10, 1 << 20), (2, 10, 1)):
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                              generator=gen)
+            assert torch.equal(gf256_stacked_transform(consts, x),
+                               gf256_stacked_transform_reference(consts, x))
+            block = torch.randint(0, 256, (shape[0], 14, shape[2]),
+                                  dtype=torch.uint8, device=dev,
+                                  generator=gen)
+            plain = block.clone()
+            gf256_stacked_transform(consts, x, out=block[:, 10:])
+            gf256_stacked_transform_reference(consts, x, out=plain[:, 10:])
+            assert torch.equal(block, plain)
+            calls += 2
+    torch.cuda.synchronize()
+    assert (gf256_cuda.launches, gf256_cuda.stacked_launches) == (
+        before[0], before[1] + calls)
