@@ -7,13 +7,18 @@
 Builds the port's CUDA kernels from the sources in this checkout, then:
 
 1. prints the device facts (nvidia-smi name and power limit, torch and
-   CUDA versions, kernel build time and the compiler's register report);
+   CUDA versions, kernel build time, the compiler's register report and
+   the static SASS opcode mix of each kernel instance);
 2. holds the GF(256) kernel byte-equal to its plain PyTorch version on
    the card: encode (4x10), rebuild for lost {0,3,7,9}, {10,11,12,13},
-   {2,11} and {5}, rows=1, rows=k=16, the pipeline's (8, 10, 1 MiB)
-   block, a ragged L = 1 MiB + 3 and a strided (B, 14, L)[:, :10] view;
-   and its stacked entry (K2's port) writing into a strided
-   (B, 14, L)[:, 10:] view at a ragged L = 264 * 512 + 5;
+   {2,11} and {5}, rows=1, rows=k=16, every byte value at every byte
+   lane of a chunk in every input row (encode and a random 4x10), rows
+   5, 8 and 13 (partial groups of 4 rows), k=1, many short windows, the
+   pipeline's (8, 10, 1 MiB) block, a ragged L = 1 MiB + 3, a strided
+   (B, 14, L)[:, :10] view and views whose rows start 1..15 bytes off a
+   16-byte boundary; and its stacked entry (K2's port) writing into a
+   strided (B, 14, L)[:, 10:] view at a ragged L = 264 * 512 + 5 and
+   into out= views 1..15 bytes off a 16-byte boundary;
 3. runs the flagship steps of models/ec_model.py (encode, rebuild of
    lost {0,3,7,9}, verify) on 10 shards x 256 MiB resident on the card,
    checks each against the plain version and times it;
@@ -45,9 +50,11 @@ import json
 import math
 import os
 import shutil
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -75,10 +82,10 @@ MIB = 1 << 20
 # int8 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-# lanes per Hopper SM: the INT32 pipe (shifts, LOP3) and the FP32/FMA
-# pipe, which also issues integer multiplies (IMAD)
+# per Hopper SM: lanes of the INT32 pipe (shifts, LOP3, PRMT), and the
+# 32 banks of shared memory, which serve one 32-bit load per lane a clock
 INT32_LANES_PER_SM = 64
-FMA_LANES_PER_SM = 128
+LDS_LANES_PER_SM = 32
 
 LOST = [0, 3, 7, 9]
 
@@ -104,13 +111,28 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
+# cycles a second for torch.cuda._sleep: the H100's top SM clock (a card
+# that runs slower only spins longer)
+SPIN_HZ = 1.98e9
+
+
+def cuda_ms(fn, iters: int, spin: bool = True) -> float:
     """Mean milliseconds of fn() on the card: CUDA events around `iters`
-    calls after one warm-up call."""
+    calls after one warm-up call. With `spin` the stream first spins for
+    twice the host time of those calls, at most 0.25 s
+    (torch.cuda._sleep), so the calls are queued before the first one
+    starts and the events see the device's time alone. Without it the
+    calls run back to back, and where a call's host cost (checks, output
+    allocation, launch) exceeds the device's time the events see the
+    host's."""
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(int(min(2 * iters * host_s, 0.25) * SPIN_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -133,54 +155,131 @@ def bound(rows: int, k: int, bsz: int, length: int) -> dict:
     once, each output written once) over HBM bandwidth and its operations
     over the int8 tensor-core peak, counting the transform as its GF(2)
     bit-matrix product ((8 rows) x (8 k) multiply-adds per byte column).
-    Also the kernel's own instruction mix per 4 input bytes: 8 * (2 +
-    rows) shifts, ANDs and XORs for the INT32 pipe and 8 * rows
-    multiplies (IMAD) for the FMA pipe."""
+
+    Also a model of the nibble-table kernel's instruction mix, per
+    16-byte chunk of a window with G = ceil(rows / 4) groups of 4 rows:
+    for each of the 4k input words, 12 INT32 operations of offsets (two
+    shift-and-mask pairs, 8 __byte_perm) and 4 LOP3 per group, and 8
+    shared loads (LDS) per group; then 32 __byte_perm per group for the
+    4 x 4 transposes. It is the source's count, not the compiler's: the
+    compiler issues some shifts as IMAD.SHL on the FMA pipe and adds
+    address arithmetic (phase 1 prints the SASS mix)."""
     nbytes = bsz * (k + rows) * length
     ops = 2 * (8 * rows) * (8 * k) * bsz * length
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT8_OPS_PER_S * 1e3
+    groups = -(-rows // 4)
+    chunks = bsz * -(-length // 16)
     return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "int_pipe_ops": 8 * (2 + rows) * bsz * k * length // 4,
-            "fma_pipe_ops": 8 * rows * bsz * k * length // 4}
+            "int_pipe_ops": chunks * (4 * k * (12 + 4 * groups)
+                                      + 32 * groups),
+            "lds_ops": chunks * 4 * k * 8 * groups}
+
+
+# opcode of a SASS instruction line, after an optional predicate
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_mix(name: str) -> dict[str, Counter]:
+    """Static count of each opcode (suffixes dropped) in every kernel
+    function of csrc/<name>.cu's built library, from cuobjdump -sass."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _build.library_path(name)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    mix: dict[str, Counter] = {}
+    fn = None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            mix[fn] = Counter()
+        elif fn is not None:
+            m = SASS_LINE.match(line)
+            if m:
+                mix[fn][m.group(1)] += 1
+    return mix
 
 
 # -- phase 2: kernel vs plain version ---------------------------------------
 
-def kernel_cases(dev: torch.device, seed: int) -> list[tuple]:
-    """(name, consts, x) for every shape phase 2 holds the kernel to."""
+def every_byte(k: int, dev: torch.device, bsz: int = 2) -> torch.Tensor:
+    """(bsz, k, 4096) uint8 in which every value 0..255 stands at each of
+    the 16 byte lanes of a chunk in every input row: byte p of chunk c of
+    row i in window b is ((2b + 1) c + 17 p + 31 i) mod 256, and c runs
+    over 256 chunks."""
+    b = torch.arange(bsz, device=dev).view(bsz, 1, 1, 1)
+    i = torch.arange(k, device=dev).view(1, k, 1, 1)
+    c = torch.arange(256, device=dev).view(1, 1, 256, 1)
+    p = torch.arange(16, device=dev).view(1, 1, 1, 16)
+    x = ((2 * b + 1) * c + 17 * p + 31 * i) % 256
+    return x.to(torch.uint8).reshape(bsz, k, 256 * 16)
+
+
+def kernel_cases(dev: torch.device, seed: int, block: int = MIB
+                 ) -> list[tuple]:
+    """(name, consts, x) for every shape phase 2 holds the kernel to;
+    `block` is the window of the pipeline-sized cases. The card runs
+    them at 1 MiB; the tests rehearse them on the CPU at a small window,
+    because there the plain version and the tests' numpy model of the
+    kernel would take tens of seconds at 1 MiB."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                              generator=gen)
 
+    rng = np.random.default_rng(seed)
+
+    def matrix(rows, k):
+        return device_consts(rng.integers(0, 256, (rows, k)), dev)
+
     parity = device_consts(gf.parity_matrix(), dev)
     cases = [("encode 4x10 (2, 10, 64 KiB)", parity, rand(2, 10, 64 << 10)),
-             ("pipeline block (8, 10, 1 MiB)", parity, rand(8, 10, MIB)),
-             ("ragged L = 1 MiB + 3", parity, rand(2, 10, MIB + 3)),
-             ("strided (8, 14, 1 MiB)[:, :10]", parity,
-              rand(8, 14, MIB)[:, :gf.DATA_SHARDS])]
+             (f"pipeline block (8, 10, {block})", parity,
+              rand(8, 10, block)),
+             (f"ragged L = {block} + 3", parity, rand(2, 10, block + 3)),
+             (f"strided (8, 14, {block})[:, :10]", parity,
+              rand(8, 14, block)[:, :gf.DATA_SHARDS])]
     for lost in ([0, 3, 7, 9], [10, 11, 12, 13], [2, 11], [5]):
         coeff = gf.shard_rows(lost, present_for(lost))
         cases.append((f"rebuild lost {lost} (rows={len(lost)})",
                       device_consts(coeff, dev), rand(3, 10, 300_001)))
-    rng = np.random.default_rng(seed)
     cases.append(("rows=1 ragged (1, 10, 4097)",
                   device_consts(gf.shard_rows([12], present_for([12])), dev),
                   rand(1, 10, 4097)))
     cases.append(("rows=16 k=16 (2, 16, 65 KiB + 1)",
                   device_consts(rng.integers(0, 256, (16, 16)), dev),
                   rand(2, 16, (65 << 10) + 1)))
+    cases.append(("every byte at every lane, encode 4x10", parity,
+                  every_byte(10, dev)))
+    cases.append(("every byte at every lane, random 4x10", matrix(4, 10),
+                  every_byte(10, dev)))
+    for rows, k in ((5, 10), (8, 10), (13, 10), (13, 16)):
+        cases.append((f"every byte at every lane, random {rows}x{k}",
+                      matrix(rows, k), every_byte(k, dev)))
+    cases.append(("k=1 random 4x1 (2, 1, 64 KiB + 7)", matrix(4, 1),
+                  rand(2, 1, (64 << 10) + 7)))
+    cases.append(("k=1 every byte at every lane, random 6x1", matrix(6, 1),
+                  every_byte(1, dev)))
+    windows = max(1, block * 40_000 // MIB)
+    cases.append((f"many short windows ({windows}, 10, 33)", parity,
+                   rand(windows, 10, 33)))
+    base = rand(2, 10, 8192)
+    for off in range(1, 16):
+        cases.append((f"x rows {off} bytes off 16 (2, 10, 4101)", parity,
+                      base[:, :, off:off + 4101]))
     return cases
 
 
-def phase_kernel_vs_plain(dev: torch.device, seed: int) -> int:
-    """Every case byte-equal; returns the max absolute byte difference."""
+def phase_kernel_vs_plain(dev: torch.device, seed: int,
+                          block: int = MIB) -> int:
+    """Every case of kernel_cases(dev, seed, block) byte-equal; returns
+    the max absolute byte difference."""
     max_err = 0
-    for name, consts, x in kernel_cases(dev, seed):
+    for name, consts, x in kernel_cases(dev, seed, block):
         got = gf256_transform(consts, x)
         want = gf256_transform_reference(consts, x)
         sync(dev)
@@ -195,8 +294,10 @@ def phase_kernel_vs_plain(dev: torch.device, seed: int) -> int:
 def phase_stacked_vs_plain(dev: torch.device, seed: int) -> int:
     """The stacked entry (K2's port) byte-equal to its plain version on a
     ragged L = 264 * 512 + 5, writing into the strided parity rows
-    (B, 14, L)[:, 10:] of a block and into a fresh output; returns the
-    max absolute byte difference."""
+    (B, 14, L)[:, 10:] of a block and into a fresh output, and into out=
+    views whose rows start 1..15 bytes off a 16-byte boundary, from
+    aligned and from misaligned inputs; returns the max absolute byte
+    difference."""
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     length = 264 * 512 + 5
 
@@ -226,6 +327,31 @@ def phase_stacked_vs_plain(dev: torch.device, seed: int) -> int:
         check(got.data_ptr() == block[:, gf.DATA_SHARDS:].data_ptr()
               and err == 0, f"stacked entry differs from its plain "
               f"version: {name}")
+
+    consts = device_consts(gf.parity_matrix(), dev)
+    n = 4096 + 5
+    aligned = rand(2, gf.DATA_SHARDS, 4096 + 16)[:, :, :n]
+    shifted = rand(2, gf.DATA_SHARDS, 8192)
+    err = 0
+    for off in range(1, 16):
+        for xin in (aligned, shifted[:, :, off:off + n]):
+            block = rand(2, gf.TOTAL_SHARDS, 8192)
+            plain = block.clone()
+            got = gf256_stacked_transform(
+                consts, xin, out=block[:, gf.DATA_SHARDS:, off:off + n])
+            gf256_stacked_transform_reference(
+                consts, xin, out=plain[:, gf.DATA_SHARDS:, off:off + n])
+            sync(dev)
+            err = max(err, abs_err(block, plain))
+            check(got.data_ptr() % 16 == off,
+                  f"out= view starts {got.data_ptr() % 16} bytes off 16, "
+                  f"expected {off}")
+    max_err = max(max_err, err)
+    print(f"  stacked vs plain: out= rows 1..15 bytes off 16 "
+          f"(2, 14, 8192)[:, 10:, off:off + {n}], from aligned and from "
+          f"shifted inputs: max_abs_err={err}")
+    check(err == 0, "stacked entry differs from its plain version on "
+          "misaligned out= views")
     return max_err
 
 
@@ -488,21 +614,25 @@ def check_volume_counts(seen: dict) -> int:
 
 # -- phase 5: kernel timing ---------------------------------------------------
 
-def report_timing(label: str, ms: float, plain_ms: float, b: dict,
-                  dev: torch.device, card: str) -> dict:
-    """Print a kernel's time beside its bound and the bitplane form's
-    instruction mix per pipe; returns the kernels-line numbers."""
+def report_timing(label: str, ms: float, b2b_ms: float, plain_ms: float,
+                  b: dict, dev: torch.device, card: str) -> dict:
+    """Print a kernel's time (device alone, and back to back with the
+    wrapper's host cost) beside its bound and the modelled instruction
+    count per pipe; returns the kernels-line numbers."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     int_ms = b["int_pipe_ops"] / (sms * INT32_LANES_PER_SM * clock_hz) * 1e3
-    fma_ms = b["fma_pipe_ops"] / (sms * FMA_LANES_PER_SM * clock_hz) * 1e3
+    lds_ms = b["lds_ops"] / (sms * LDS_LANES_PER_SM * clock_hz) * 1e3
     print(f"  {label}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
-          f"ms by {b['bound_by']} ({b['bytes']} bytes; GF(2) bit-matrix "
-          f"int8 ops {b['ops_ms']:.4f} ms), share {b['bound_ms'] / ms:.3f}; "
-          f"bitplane instruction mix at {sms} SMs x {clock_hz / 1e6:.0f} MHz:"
-          f" INT32 pipe {b['int_pipe_ops']} ops = {int_ms:.4f} ms, FMA "
-          f"pipe {b['fma_pipe_ops']} IMAD = {fma_ms:.4f} ms; [{card}]")
+          f"{ms:.4f} ms (device alone; back to back with the host's calls "
+          f"{b2b_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes; "
+          f"GF(2) bit-matrix int8 ops {b['ops_ms']:.4f} ms), share "
+          f"{b['bound_ms'] / ms:.3f} (back to back "
+          f"{b['bound_ms'] / b2b_ms:.3f}); modelled nibble-table count at "
+          f"{sms} SMs x {clock_hz / 1e6:.0f} MHz: INT32 pipe "
+          f"{b['int_pipe_ops']} ops = {int_ms:.4f} ms, shared loads "
+          f"{b['lds_ops']} LDS = {lds_ms:.4f} ms; [{card}]")
     print(f"  clocks.sm, power.draw after timing: "
           f"{smi('clocks.sm,power.draw')}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
@@ -516,10 +646,11 @@ def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
                       device=dev, generator=gen)
     consts = device_consts(gf.parity_matrix(), dev)
     ms = cuda_ms(lambda: gf256_transform(consts, x), 50)
+    b2b_ms = cuda_ms(lambda: gf256_transform(consts, x), 50, spin=False)
     plain_ms = cuda_ms(lambda: gf256_transform_reference(consts, x), 5)
     return report_timing(f"pipeline block ({bsz}, {k}, {length}) encode",
-                         ms, plain_ms, bound(consts.shape[0], k, bsz, length),
-                         dev, card)
+                         ms, b2b_ms, plain_ms,
+                         bound(consts.shape[0], k, bsz, length), dev, card)
 
 
 # -- phase 6: the mesh path --------------------------------------------------
@@ -685,17 +816,24 @@ def time_mesh_blocks(seen: dict, dev: torch.device, card: str) -> dict:
     out = seen["encoded"][:, gf.DATA_SHARDS:]
     parity, rebuild = seen["parity"], seen["rebuild"]
     bsz, k, n = data.shape
-    ms = cuda_ms(lambda: gf256_stacked_transform(parity, data, out=out), 10)
+    def encode():
+        gf256_stacked_transform(parity, data, out=out)
+
+    def rebuild_block():
+        gf256_stacked_transform(rebuild, survivors)
+
     plain_ms = cuda_ms(lambda: gf256_stacked_transform_reference(
         parity, data, out=out), 2)
     t = report_timing(f"mesh encode block ({bsz}, {k}, {n}) -> (.., 4, ..)"
-                      f" out=[:, 10:]", ms, plain_ms, bound(4, k, bsz, n),
-                      dev, card)
-    ms = cuda_ms(lambda: gf256_stacked_transform(rebuild, survivors), 10)
+                      f" out=[:, 10:]", cuda_ms(encode, 10),
+                      cuda_ms(encode, 10, spin=False), plain_ms,
+                      bound(4, k, bsz, n), dev, card)
     plain_ms = cuda_ms(lambda: gf256_stacked_transform_reference(
         rebuild, survivors), 2)
     report_timing(f"mesh rebuild block ({bsz}, {k}, {n}) lost {MESH_LOST}",
-                  ms, plain_ms, bound(4, k, bsz, n), dev, card)
+                  cuda_ms(rebuild_block, 10),
+                  cuda_ms(rebuild_block, 10, spin=False), plain_ms,
+                  bound(4, k, bsz, n), dev, card)
     return t
 
 
@@ -734,8 +872,15 @@ def main(argv=None) -> int:
           f"parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}")
+    for fn, mix in sass_mix("gf256_transform").items():
+        groups = re.search(r"ILi(\d+)E", fn)
+        print(f"  gf256_transform SASS (cuobjdump -sass, static count), "
+              f"instance for {groups.group(1) if groups else fn} group(s) "
+              f"of 4 rows: {sum(mix.values())} instructions, "
+              f"{dict(mix.most_common(12))}")
 
     print("== phase 2: kernel vs plain version on the card")
     max_err = phase_kernel_vs_plain(dev, args.seed)

@@ -1,39 +1,64 @@
 // GF(256) shard transform for Hopper (sm_90a): out = C (x) x over GF(2^8).
 //
 // Replaces seaweedfs_tpu/ops/gf256_pallas.py::_make_kernel (the Pallas TPU
-// kernel K1, body _accumulate_bitplanes). It computes the same function:
-// for every byte column, out[b, r] = XOR_i gf_mul(C[r, i], x[b, i]), where C
-// is a (rows, k) coefficient matrix handed over as its (rows, k, 8) bitplane
-// constants K[r, i, j] = gf_mul(C[r, i], 1 << j) (gf.bitplane_constants).
+// kernel K1, body _accumulate_bitplanes); the stacked entry of the wrapper
+// launches it for ::_make_stacked_kernel (K2) too. It computes the same
+// function: for every byte column, out[b, r] = XOR_i gf_mul(C[r, i], x[b, i]),
+// where C is a (rows, k) coefficient matrix handed over as its (rows, k, 8)
+// bitplane constants K[r, i, j] = gf_mul(C[r, i], 1 << j)
+// (gf.bitplane_constants).
 //
-// Math, per 32-bit word of four input bytes:
-//     bits    = (x >> j) & 0x01010101      bit j of each of the 4 bytes
-//     acc[r] ^= bits * K[r][i][j]          K < 256: no carries between bytes
+// Math: gf_mul(c, v) is linear in v over GF(2), so it splits over the two
+// nibbles of v: gf_mul(c, v) = lo[v & 15] ^ hi[v >> 4], where
+//     lo[u] = XOR_{j < 4, bit j of u} K[r, i, j]
+//     hi[u] = XOR_{j < 4, bit j of u} K[r, i, 4 + j].
+// Each block builds, in its prologue, two 16-entry uint32 tables for every
+// input i and every group g of 4 output rows: byte q of T_lo[g][i][u] is
+// lo[u] of row 4g + q, T_hi likewise with hi, and rows past the last are
+// zero bytes. Per input byte the body reads the two entries and XORs both
+// into its byte column's packed accumulator (one LOP3), which carries the
+// group's 4 rows in one word. The epilogue transposes the 16 column words
+// of a chunk, 4 x 4 bytes at a time with __byte_perm, into 4 rows of 16
+// bytes and writes each row with one 16-byte store.
 //
 // What bounds it: HBM bytes. The pipeline's block, (8, 10, 1 MiB) in and
-// (8, 4, 1 MiB) out, is 117 MB, 35 us at 3.35 TB/s. What holds this first
-// kernel above that bound is the integer pipe: the bitplane form issues,
-// per 4 input bytes, 8 * (2 + rows) shifts, ANDs and XORs on the 64-lane
-// INT32 pipe (48 for encode, ~60 us for the block) and 8 * rows multiplies
-// on the FMA pipe. chip_smoke.py prints both figures beside the kernel's
-// measured time (PERF.md). Nibble tables with __byte_perm would cut the
-// operation count; that is later work.
+// (8, 4, 1 MiB) out, is 117 MB, 35 us at 3.35 TB/s. Per 4 input bytes and
+// per group of 4 rows the body issues 8 shared loads (LDS) and
+// 12 + 4 INT32-pipe operations: two shift-and-mask pairs give the four low-
+// and the four high-nibble offsets of the word at once, one __byte_perm
+// picks each out, and one LOP3 per byte accumulates. That is 16.8 INT32
+// operations per input word at 4 rows with the epilogue, against 48 for the
+// bitplane form this kernel replaced, and no multiply; with 64 INT32 lanes
+// and 32 shared-memory banks per SM both pipes need about 60% of the byte
+// bound's time (chip_smoke.py prints the counts beside the measured time).
+// Each further group of 4 rows adds 8 LDS and 4 LOP3 per input word; the
+// offsets are shared.
 //
-// Design, against the TPU kernel:
-// - Layout: the (wm, 128) uint32 tile is a TPU shape, not a contract. The
-//   kernel takes (B, k, L) bytes with the batch and shard axes strided, so
-//   the caller's (B, k, L) block (or a (B, k+m, L) view of it) is read in
-//   place with no transpose. Each thread owns 16 contiguous bytes of one
-//   window; neighbouring threads read neighbouring 16-byte chunks, as one
-//   128-bit load where the address is 16-byte aligned. The ragged tail and
-//   misaligned rows fall back to byte loads inside the kernel, so nothing is
-//   padded to a block quantum.
-// - Constants: the rows * k * 8 bytes are a runtime tensor, staged into
-//   shared memory once per block. One build serves every coefficient matrix
-//   (reconstruct matrices change with every missing set); only the row count
-//   is a template parameter, so the row accumulators live in registers.
-// - Grid: a grid-stride loop over 16-byte chunks of each window (x), and over
-//   the windows of the batch (y).
+// Shared memory: the tables take G x 16 inputs x 2 x 64 B, G = ceil(rows / 4)
+// groups: 2 KB at rows <= 4, 8 KB at 16 rows, static. Each 16-word table
+// starts on a 16-word boundary, so it spans 16 distinct banks; the 32 lanes
+// of a warp always read one table at a time, so distinct entries lie in
+// distinct banks and equal entries broadcast: no bank conflict.
+//
+// Why not tensor cores: as a GF(2) bit-matrix product on the int8 tensor
+// cores (1,979 TOP/s) the transform needs 62% of the byte bound before the
+// work of unpacking every byte into 8 int8 values and packing the parity
+// bits back, which costs about what the bitplane form's extraction did. They
+// cannot reach the byte bound here; they belong to the port of
+// ops/gf256_mxu.py.
+//
+// Layout and grid: the kernel takes (B, k, L) bytes with the batch and shard
+// axes strided, so a (B, k+m, L) block is read in place. Each thread owns 16
+// contiguous bytes (a chunk) of one window and issues the 16-byte loads of
+// all k inputs before the first lookup, so a thread has k x 16 B in flight;
+// a block's first loads are issued before it builds its tables, so the
+// prologue hides behind them. The grid is at most one wave of blocks (as
+// many as fit on every SM), sized so that every thread strides over the same
+// number of the batch's (window, chunk) pairs. A chunk whose rows start off
+// a 16-byte boundary, or the ragged tail of a window, goes through a byte
+// path on the same tables. One build serves every coefficient matrix: the
+// constants are a runtime tensor, and only the number of row groups is a
+// template parameter, so the accumulators live in registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,103 +67,263 @@ namespace {
 
 constexpr int kMaxRows = 16;
 constexpr int kMaxK = 16;
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kGroupRows = 4;
+constexpr int kThreads = 128;
 
-__device__ __forceinline__ void load16(const uint8_t* p, long long n,
-                                       uint32_t w[4]) {
-  if (n >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-    return;
-  }
-  // byte path for the ragged tail and misaligned rows; fully unrolled so
-  // w[] stays in registers
-  w[0] = w[1] = w[2] = w[3] = 0;
+// [group][input][0 = low nibble, 1 = high nibble][nibble value]
+template <int G>
+using Tables = uint32_t[G][kMaxK][2][16];
+
+// Fill the tables. Every 16-entry table is the XOR span of 4 basis words
+// (bit j of the nibble selects basis j), so the block first reads, in one
+// round trip to global memory, the basis bytes K[4g + q, i, 4h + j] packed
+// by q, then spans each table in shared memory. Ends with a barrier.
+template <int G>
+__device__ __forceinline__ void build_tables(const uint8_t* __restrict__ consts,
+                                             int rows, int k, Tables<G>& tab,
+                                             uint32_t (&basis)[G][kMaxK][2][4]) {
+  for (int e = threadIdx.x; e < G * k * 8; e += blockDim.x) {
+    const int j = e & 3;
+    const int half = (e >> 2) & 1;
+    const int gi = e >> 3;
+    const int g = gi / k;
+    const int i = gi - g * k;
+    uint32_t word = 0;
 #pragma unroll
-  for (int b = 0; b < 16; ++b) {
-    if (b < n) w[b >> 2] |= static_cast<uint32_t>(p[b]) << (8 * (b & 3));
-  }
-}
-
-__device__ __forceinline__ void store16(uint8_t* p, long long n,
-                                        const uint32_t w[4]) {
-  if (n >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    return;
-  }
-#pragma unroll
-  for (int b = 0; b < 16; ++b) {
-    if (b < n) p[b] = static_cast<uint8_t>(w[b >> 2] >> (8 * (b & 3)));
-  }
-}
-
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-gf256_transform_kernel(const uint8_t* __restrict__ consts, int k,
-                       const uint8_t* __restrict__ x, long long x_sb,
-                       long long x_sk, uint8_t* __restrict__ out,
-                       long long o_sb, long long o_sr, long long batch,
-                       long long length) {
-  // consts arrive as (rows, k, 8); shared memory holds them as
-  // [i][j][r] words so the ROWS constants of one bitplane sit together
-  __shared__ uint32_t sk[kMaxK * 8 * ROWS];
-  const int n_consts = ROWS * k * 8;
-  for (int t = threadIdx.x; t < n_consts; t += blockDim.x) {
-    const int r = t / (k * 8);
-    const int ij = t - r * (k * 8);
-    sk[ij * ROWS + r] = consts[t];
+    for (int q = 0; q < kGroupRows; ++q) {
+      const int r = g * kGroupRows + q;
+      if (r < rows) {
+        word |= static_cast<uint32_t>(__ldg(consts + (r * k + i) * 8 +
+                                            4 * half + j))
+                << (8 * q);
+      }
+    }
+    basis[g][i][half][j] = word;
   }
   __syncthreads();
+  for (int e = threadIdx.x; e < G * k * 32; e += blockDim.x) {
+    const int u = e & 15;
+    const int half = (e >> 4) & 1;
+    const int gi = e >> 5;
+    const int g = gi / k;
+    const int i = gi - g * k;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if ((u >> j) & 1) word ^= basis[g][i][half][j];
+    }
+    tab[g][i][half][u] = word;
+  }
+  __syncthreads();
+}
 
-  const long long chunks = (length + 15) / 16;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-    const uint8_t* xb = x + b * x_sb;
-    uint8_t* ob = out + b * o_sb;
-    for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         c < chunks; c += stride) {
-      const long long off = c * 16;
-      const long long n = length - off;
-      uint32_t acc[ROWS][4];
+// The entry of a 16-word table at a byte offset that is 4 x the nibble.
+__device__ __forceinline__ uint32_t entry(const uint32_t* table,
+                                          uint32_t byte_off) {
+  return *reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<const uint8_t*>(table) + byte_off);
+}
+
+// XOR gf_mul(C[r, i], byte) of the 4 bytes of input word w into the packed
+// accumulators of their columns, acc[g][c0 .. c0 + 3].
+template <int G>
+__device__ __forceinline__ void accumulate_word(const Tables<G>& tab, int i,
+                                                uint32_t w, int c0,
+                                                uint32_t (&acc)[G][16]) {
+  // byte b of lo (hi) is 4 x the low (high) nibble of byte b of w: the byte
+  // offset of its table entry
+  const uint32_t lo = (w << 2) & 0x3C3C3C3Cu;
+  const uint32_t hi = (w >> 2) & 0x3C3C3C3Cu;
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0;
-      }
-      for (int i = 0; i < k; ++i) {
-        uint32_t w[4];
-        load16(xb + i * x_sk + off, n, w);
-        const uint32_t* ki = sk + i * 8 * ROWS;
+  for (int b = 0; b < 4; ++b) {
+    const uint32_t ol = __byte_perm(lo, 0, 0x4440 + b);
+    const uint32_t oh = __byte_perm(hi, 0, 0x4440 + b);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t bits[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) bits[q] = (w[q] >> j) & 0x01010101u;
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const uint32_t kc = ki[j * ROWS + r];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r][q] ^= bits[q] * kc;
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) store16(ob + r * o_sr + off, n, acc[r]);
+    for (int g = 0; g < G; ++g) {
+      acc[g][c0 + b] ^= entry(tab[g][i][0], ol) ^ entry(tab[g][i][1], oh);
     }
   }
 }
 
-template <int ROWS>
-void launch(const uint8_t* consts, int k, const uint8_t* x, long long x_sb,
-            long long x_sk, uint8_t* out, long long o_sb, long long o_sr,
-            long long batch, long long length, dim3 grid,
-            cudaStream_t stream) {
-  gf256_transform_kernel<ROWS><<<grid, kThreads, 0, stream>>>(
-      consts, k, x, x_sb, x_sk, out, o_sb, o_sr, batch, length);
+// 4 x 4 byte transpose: a[c] holds rows 0..3 of column c in its bytes;
+// row q of the result holds column c of row q in byte c.
+__device__ __forceinline__ void transpose4(const uint32_t* a, uint32_t* row) {
+  const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140);  // a0.0 a1.0 a0.1 a1.1
+  const uint32_t t1 = __byte_perm(a[0], a[1], 0x7362);  // a0.2 a1.2 a0.3 a1.3
+  const uint32_t u0 = __byte_perm(a[2], a[3], 0x5140);
+  const uint32_t u1 = __byte_perm(a[2], a[3], 0x7362);
+  row[0] = __byte_perm(t0, u0, 0x5410);
+  row[1] = __byte_perm(t0, u0, 0x7632);
+  row[2] = __byte_perm(t1, u1, 0x5410);
+  row[3] = __byte_perm(t1, u1, 0x7632);
+}
+
+// The k 16-byte loads of a chunk whose rows start on 16-byte boundaries,
+// all issued before any of them is used.
+__device__ __forceinline__ void load_chunk(int k, const uint8_t* xp,
+                                           long long x_sk, uint4 (&v)[kMaxK]) {
+#pragma unroll
+  for (int i = 0; i < kMaxK; ++i) {
+    if (i < k) v[i] = __ldg(reinterpret_cast<const uint4*>(xp + i * x_sk));
+  }
+}
+
+// The lookups of a loaded chunk, the transpose and one 16-byte store per
+// output row.
+template <int G>
+__device__ __forceinline__ void chunk_vector(const Tables<G>& tab, int rows,
+                                             int k, const uint4 (&v)[kMaxK],
+                                             uint8_t* op, long long o_sr) {
+  uint32_t acc[G][16];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[g][c] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxK; ++i) {
+    if (i < k) {
+      accumulate_word<G>(tab, i, v[i].x, 0, acc);
+      accumulate_word<G>(tab, i, v[i].y, 4, acc);
+      accumulate_word<G>(tab, i, v[i].z, 8, acc);
+      accumulate_word<G>(tab, i, v[i].w, 12, acc);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    uint32_t out[4][4];  // [row q of the group][word]
+#pragma unroll
+    for (int word = 0; word < 4; ++word) {
+      uint32_t row[4];
+      transpose4(&acc[g][4 * word], row);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[q][word] = row[q];
+    }
+#pragma unroll
+    for (int q = 0; q < kGroupRows; ++q) {
+      const int r = g * kGroupRows + q;
+      if (r < rows) {
+        *reinterpret_cast<uint4*>(op + r * o_sr) =
+            make_uint4(out[q][0], out[q][1], out[q][2], out[q][3]);
+      }
+    }
+  }
+}
+
+// The first n (<= 16) bytes of a chunk, one byte column at a time: for the
+// ragged tail of a window and for rows off a 16-byte boundary.
+template <int G>
+__device__ __forceinline__ void chunk_bytes(const Tables<G>& tab, int rows,
+                                            int k, const uint8_t* xp,
+                                            long long x_sk, uint8_t* op,
+                                            long long o_sr, int n) {
+  for (int p = 0; p < n; ++p) {
+    uint32_t acc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v = xp[i * x_sk + p];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        acc[g] ^= tab[g][i][0][v & 15] ^ tab[g][i][1][v >> 4];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int q = 0; q < kGroupRows; ++q) {
+        const int r = g * kGroupRows + q;
+        if (r < rows) {
+          op[r * o_sr + p] = static_cast<uint8_t>(acc[g] >> (8 * q));
+        }
+      }
+    }
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+gf256_transform_kernel(const uint8_t* __restrict__ consts, int rows, int k,
+                       const uint8_t* __restrict__ x, long long x_sb,
+                       long long x_sk, uint8_t* __restrict__ out,
+                       long long o_sb, long long o_sr, long long batch,
+                       long long length) {
+  __shared__ __align__(64) Tables<G> tab;
+  __shared__ uint32_t basis[G][kMaxK][2][4];
+
+  // the (window, chunk) pairs of the batch, strided over the whole grid
+  const long long chunks = (length + 15) >> 4;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
+                          threadIdx.x;
+  long long b = first / chunks;
+  long long c = first - b * chunks;
+  const long long db = stride / chunks;
+  const long long dc = stride - db * chunks;
+  // a row stride only matters for alignment when there is a second row
+  const unsigned long long steps =
+      static_cast<unsigned long long>(k > 1 ? x_sk : 0) |
+      static_cast<unsigned long long>(rows > 1 ? o_sr : 0);
+
+  const uint8_t* xp = nullptr;
+  uint8_t* op = nullptr;
+  long long n = 0;
+  bool vector = false;
+  uint4 v[kMaxK];
+  // where chunk (b, c) lies, and its loads when it takes the vector path
+  auto place = [&]() {
+    const long long off = c << 4;
+    n = length - off;
+    xp = x + b * x_sb + off;
+    op = out + b * o_sb + off;
+    vector = n >= 16 && ((reinterpret_cast<uintptr_t>(xp) |
+                          reinterpret_cast<uintptr_t>(op) | steps) & 15) == 0;
+    if (vector) load_chunk(k, xp, x_sk, v);
+  };
+
+  // the first chunk's loads are in flight while the block builds its tables
+  if (b < batch) place();
+  build_tables<G>(consts, rows, k, tab, basis);
+
+  while (b < batch) {
+    if (vector) {
+      chunk_vector<G>(tab, rows, k, v, op, o_sr);
+    } else {
+      chunk_bytes<G>(tab, rows, k, xp, x_sk, op, o_sr,
+                     n < 16 ? static_cast<int>(n) : 16);
+    }
+    b += db;
+    c += dc;
+    if (c >= chunks) {
+      c -= chunks;
+      ++b;
+    }
+    if (b < batch) place();
+  }
+}
+
+template <int G>
+int blocks_per_sm() {
+  static int cached = 0;
+  if (cached == 0) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, gf256_transform_kernel<G>, kThreads, 0) != cudaSuccess) {
+      return 0;
+    }
+    cached = n;
+  }
+  return cached;
+}
+
+int blocks_per_sm_for(int groups) {
+  switch (groups) {
+    case 1: return blocks_per_sm<1>();
+    case 2: return blocks_per_sm<2>();
+    case 3: return blocks_per_sm<3>();
+    case 4: return blocks_per_sm<4>();
+  }
+  return 0;
 }
 
 }  // namespace
@@ -167,29 +352,41 @@ extern "C" int swtpu_gf256_transform(const void* consts, int rows, int k,
                                  device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (rows + kGroupRows - 1) / kGroupRows;
+  const int per_sm = blocks_per_sm_for(groups);
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
 
+  // at most one wave of blocks, sized so that every thread takes the same
+  // number of chunks (the last ones one fewer)
   const long long chunks = (length + 15) / 16;
-  const long long gy = batch < 65535 ? batch : 65535;
-  long long gx = (chunks + kThreads - 1) / kThreads;
-  long long cap = static_cast<long long>(sms) * kBlocksPerSm / gy;
-  if (cap < 1) cap = 1;
-  if (gx > cap) gx = cap;
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  const long long total = batch * chunks;
+  const long long wave = static_cast<long long>(sms) * per_sm * kThreads;
+  const long long per_thread = (total + wave - 1) / wave;
+  const long long blocks =
+      (total + per_thread * kThreads - 1) / (per_thread * kThreads);
+  const dim3 grid(static_cast<unsigned>(blocks));
 
   const uint8_t* c = static_cast<const uint8_t*>(consts);
   const uint8_t* xi = static_cast<const uint8_t*>(x);
   uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SWTPU_CASE(R)                                                     \
-  case R:                                                                 \
-    launch<R>(c, k, xi, x_sb, x_sk, o, o_sb, o_sr, batch, length, grid, s); \
-    break;
-  switch (rows) {
-    SWTPU_CASE(1) SWTPU_CASE(2) SWTPU_CASE(3) SWTPU_CASE(4)
-    SWTPU_CASE(5) SWTPU_CASE(6) SWTPU_CASE(7) SWTPU_CASE(8)
-    SWTPU_CASE(9) SWTPU_CASE(10) SWTPU_CASE(11) SWTPU_CASE(12)
-    SWTPU_CASE(13) SWTPU_CASE(14) SWTPU_CASE(15) SWTPU_CASE(16)
+  switch (groups) {
+    case 1:
+      gf256_transform_kernel<1><<<grid, kThreads, 0, s>>>(
+          c, rows, k, xi, x_sb, x_sk, o, o_sb, o_sr, batch, length);
+      break;
+    case 2:
+      gf256_transform_kernel<2><<<grid, kThreads, 0, s>>>(
+          c, rows, k, xi, x_sb, x_sk, o, o_sb, o_sr, batch, length);
+      break;
+    case 3:
+      gf256_transform_kernel<3><<<grid, kThreads, 0, s>>>(
+          c, rows, k, xi, x_sb, x_sk, o, o_sb, o_sr, batch, length);
+      break;
+    case 4:
+      gf256_transform_kernel<4><<<grid, kThreads, 0, s>>>(
+          c, rows, k, xi, x_sb, x_sk, o, o_sb, o_sr, batch, length);
+      break;
   }
-#undef SWTPU_CASE
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,94 @@ def test_stacked_and_mesh_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
     assert seen["encoded"].shape == (3, 14, 4096 + 7)
 
 
+def test_phase2_cases_rehearse_on_the_cpu(monkeypatch):
+    """Phase 2's kernel cases at a small window on the CPU: every check
+    passes, and the cases cover what the nibble-table kernel can get
+    wrong: every byte value at every byte lane of a chunk in every input
+    row (encode and a random 4x10), partial groups of 4 rows (5, 13),
+    rows 8, k = 1, and rows starting 1..15 bytes off a 16-byte
+    boundary."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    assert chip_smoke.phase_kernel_vs_plain(cpu, 0, 4096) == 0
+    cases = chip_smoke.kernel_cases(cpu, 0, 4096)
+    shapes = {(c.shape[0], c.shape[1]) for _, c, _ in cases}
+    assert {(4, 10), (5, 10), (8, 10), (13, 10), (4, 1), (16, 16)} <= shapes
+    every = [(c, x) for name, c, x in cases if name.startswith("every byte")]
+    assert len(every) >= 6
+    for consts, x in every:
+        lanes = x.reshape(x.shape[0], x.shape[1], -1, 16)
+        for lane in range(16):
+            for i in range(x.shape[1]):
+                assert len(torch.unique(lanes[0, i, :, lane])) == 256
+    offsets = {x.data_ptr() % 16 for _, _, x in cases
+               if x.dim() == 3 and x.stride(1) % 16 == 0}
+    assert set(range(16)) <= offsets
+
+
+def test_bound_counts_the_nibble_table_kernel(monkeypatch):
+    """The per-pipe count chip_smoke prints models the nibble-table kernel:
+    at 4 rows, 16 INT32 operations and 8 shared loads per input word, plus
+    32 byte permutes per chunk; each further group of 4 rows adds 4 and 8;
+    the byte bound and the int8 operation bound are as before."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    b = chip_smoke.bound(4, 10, 8, 1 << 20)
+    chunks = 8 * (1 << 20) // 16
+    assert b["int_pipe_ops"] == chunks * (40 * 16 + 32) == 352_321_536
+    assert b["lds_ops"] == chunks * 40 * 8
+    assert b["bytes"] == 117_440_512 and b["bound_by"] == "bytes"
+    assert b["bytes_ms"] == pytest.approx(0.035057, rel=1e-4)
+    b13 = chip_smoke.bound(13, 16, 1, 4096 + 1)
+    assert b13["int_pipe_ops"] == 257 * (64 * (12 + 16) + 128)
+    assert b13["lds_ops"] == 257 * 64 * 8 * 4
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_122gf256_transform_kernelILi1EEEvPKhiiS2_xxPhxxxx
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+                                                                     /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD.MOV.U32 R3, RZ, RZ, 0x3c ;
+        /*0020*/              @!P0 LDS R4, [R5+0x40] ;
+        /*0030*/               @P1 LDS.U8 R6, [R7] ;
+        /*0040*/                   PRMT R8, R9, 0x4440, RZ ;
+        /*0050*/             @!UP0 BRA 0x80 ;
+\t\tFunction : _ZN12_GLOBAL__N_122gf256_transform_kernelILi2EEEvPKhiiS2_xxPhxxxx
+        /*0000*/                   LOP3.LUT R1, R2, 0x3c3c3c3c, RZ, 0xc0, !PT ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_mix_counts_opcodes_by_function(monkeypatch):
+    """cuobjdump's SASS listing becomes a count of each opcode, suffixes
+    and predicates dropped, per kernel function; encoding lines and
+    headers count nothing."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=SASS, stderr="")
+
+    monkeypatch.setattr(chip_smoke._build, "nvcc_path",
+                        lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    mix = chip_smoke.sass_mix("gf256_transform")
+    assert calls[0][:2] == ["/cuda/bin/cuobjdump", "-sass"]
+    assert calls[0][2] == chip_smoke._build.library_path("gf256_transform")
+    one, two = mix.values()
+    assert dict(one) == {"LDC": 1, "IMAD": 1, "LDS": 2, "PRMT": 1, "BRA": 1}
+    assert dict(two) == {"LOP3": 1, "EXIT": 1}
+    assert list(mix)[0].endswith("ILi1EEEvPKhiiS2_xxPhxxxx")
+
+
 def test_device_busy_counts_kernels_and_copies_over_the_device_window(
         monkeypatch):
     """Only kernel, memcpy and memset spans count; overlaps count once;

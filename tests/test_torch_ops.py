@@ -255,8 +255,199 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
+# -- the CUDA kernel's algorithm, in numpy --------------------------------
+# gf256_transform.cu splits gf_mul(c, v) over the two nibbles of v and
+# reads both halves from 16-entry tables that pack 4 output rows in one
+# word; the model below builds those tables from the JAX package's
+# bitplane constants and applies them as the kernel does, selector for
+# selector, so the CPU tests hold the kernel's arithmetic to the reference.
+
+
+def _byte_perm(x, y, s: int) -> np.ndarray:
+    """CUDA's __byte_perm(x, y, s): byte n of the result is byte
+    (s >> 4n) & 7 of the 8 bytes y:x (x in bytes 0-3)."""
+    both = (np.asarray(x, np.uint64)
+            | (np.asarray(y, np.uint64) << np.uint64(32)))
+    out = np.zeros(both.shape, np.uint64)
+    for n in range(4):
+        sel = (s >> (4 * n)) & 7
+        out |= ((both >> np.uint64(8 * sel)) & np.uint64(0xFF)) << \
+            np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _nibble_tables(consts: np.ndarray) -> np.ndarray:
+    """(rows, k, 8) bitplane constants -> (G, k, 2, 16) uint32 tables,
+    G = ceil(rows / 4): byte q of [g, i, h, u] is XOR_{j < 4, bit j of u}
+    consts[4g + q, i, 4h + j], and zero for rows past the last."""
+    rows, k, _ = consts.shape
+    groups = -(-rows // 4)
+    bits = (np.arange(16)[:, None] >> np.arange(4)[None, :]) & 1  # (16, 4)
+    halves = consts.reshape(rows, k, 2, 1, 4).astype(np.uint32)
+    bytes_ = np.bitwise_xor.reduce(halves * bits, axis=-1)  # (rows,k,2,16)
+    padded = np.zeros((4 * groups, k, 2, 16), np.uint32)
+    padded[:rows] = bytes_
+    padded = padded.reshape(groups, 4, k, 2, 16)
+    return sum(padded[:, q] << np.uint32(8 * q) for q in range(4))
+
+
+def _transpose4(a):
+    """The kernel's 4 x 4 byte transpose of column words a[0..3]."""
+    t0 = _byte_perm(a[0], a[1], 0x5140)
+    t1 = _byte_perm(a[0], a[1], 0x7362)
+    u0 = _byte_perm(a[2], a[3], 0x5140)
+    u1 = _byte_perm(a[2], a[3], 0x7362)
+    return [_byte_perm(t0, u0, 0x5410), _byte_perm(t0, u0, 0x7632),
+            _byte_perm(t1, u1, 0x5410), _byte_perm(t1, u1, 0x7632)]
+
+
+def _apply_tables(consts: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """(rows, k, 8) constants, (B, k, L) uint8 -> (B, rows, L) uint8 the
+    way the kernel's vector path computes each 16-byte chunk: the offsets
+    (w << 2) & 0x3C3C3C3C and (w >> 2) & 0x3C3C3C3C, one __byte_perm per
+    byte, two table reads XORed into the byte column's packed word, then
+    the 4 x 4 transposes."""
+    rows, k, _ = consts.shape
+    tab = _nibble_tables(consts)
+    groups = tab.shape[0]
+    bsz, _, length = x.shape
+    padded = -(-length // 16) * 16
+    xp = np.zeros((bsz, k, padded), np.uint8)
+    xp[..., :length] = x
+    words = xp.view("<u4").reshape(bsz, k, padded // 16, 4)
+    acc = np.zeros((groups, bsz, padded // 16, 16), np.uint32)
+    for i in range(k):
+        for word in range(4):
+            w = words[:, i, :, word]
+            lo = (w << np.uint32(2)) & np.uint32(0x3C3C3C3C)
+            hi = (w >> np.uint32(2)) & np.uint32(0x3C3C3C3C)
+            for b in range(4):
+                ol = _byte_perm(lo, 0, 0x4440 + b) >> 2
+                oh = _byte_perm(hi, 0, 0x4440 + b) >> 2
+                acc[:, :, :, 4 * word + b] ^= tab[:, i, 0][:, ol] \
+                    ^ tab[:, i, 1][:, oh]
+    out = np.zeros((bsz, 4 * groups, padded // 16, 4), np.uint32)
+    for g in range(groups):
+        for word in range(4):
+            row = _transpose4([acc[g, :, :, 4 * word + c] for c in range(4)])
+            for q in range(4):
+                out[:, 4 * g + q, :, word] = row[q]
+    out = out.astype("<u4").view(np.uint8).reshape(bsz, 4 * groups, padded)
+    return out[:, :rows, :length]
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    """chip_smoke.py, whose every_byte(k, device) puts every value 0..255
+    at each of the 16 byte lanes of a chunk in every input row, and whose
+    kernel_cases are phase 2's."""
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_nibble_tables_hold_gf_mul_by_each_nibble():
+    """Byte q of T[g, i, 0, u] is gf_mul(C[4g+q, i], u), of T[g, i, 1, u]
+    gf_mul(C[4g+q, i], u << 4), for every row, input and nibble."""
+    rng = np.random.default_rng(21)
+    for rows, k in ((1, 1), (4, 10), (5, 3), (13, 16), (16, 16)):
+        coeff = rng.integers(0, 256, (rows, k)).astype(np.uint8)
+        tab = _nibble_tables(ref_gf.bitplane_constants(coeff))
+        assert tab.shape == (-(-rows // 4), k, 2, 16)
+        assert tab.dtype == np.uint32
+        for g in range(tab.shape[0]):
+            for q in range(4):
+                r = 4 * g + q
+                got = (tab[g] >> np.uint32(8 * q)) & 0xFF
+                for i in range(k):
+                    for u in range(16):
+                        want = ((ref_gf.gf_mul(int(coeff[r, i]), u),
+                                 ref_gf.gf_mul(int(coeff[r, i]), u << 4))
+                                if r < rows else (0, 0))
+                        assert (got[i, 0, u], got[i, 1, u]) == want
+
+
+def test_byte_perm_model_and_transpose():
+    """The numpy __byte_perm follows CUDA's selector rule, and the four
+    selectors of the transpose turn column words into row words."""
+    assert _byte_perm(0x33221100, 0x77665544, 0x3210) == 0x33221100
+    assert _byte_perm(0x33221100, 0x77665544, 0x7654) == 0x77665544
+    assert _byte_perm(0x33221100, 0, 0x4442) == 0x22
+    rng = np.random.default_rng(22)
+    cols = rng.integers(0, 256, (4, 4)).astype(np.uint8)  # [column, row]
+    a = [np.uint32(int.from_bytes(bytes(cols[c]), "little"))
+         for c in range(4)]
+    rows = _transpose4(a)
+    for q in range(4):
+        assert int(rows[q]) == int.from_bytes(bytes(cols[:, q]), "little")
+
+
+def _table_case(smoke, rows: int, k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    coeff = rng.integers(0, 256, (rows, k)).astype(np.uint8)
+    every = smoke.every_byte(k, torch.device("cpu")).numpy()
+    data = np.concatenate([every, rng.integers(
+        0, 256, (2, k, 4096)).astype(np.uint8)], axis=0)
+    ragged = rng.integers(0, 256, (1, k, 333)).astype(np.uint8)
+    return coeff, data, ragged
+
+
+@pytest.mark.parametrize("rows", range(1, 17))
+def test_table_model_matches_reference_for_every_row_count(smoke, rows):
+    """rows 1..16 (k = 16 - rows + 1): every byte value at every lane, a
+    random block and a ragged one, against _apply_bitplanes and the
+    numpy CpuEncoder."""
+    k = 17 - rows
+    coeff, data, ragged = _table_case(smoke, rows, k, 100 + rows)
+    consts = ref_gf.bitplane_constants(coeff)
+    got = _apply_tables(consts, data)
+    assert np.array_equal(got, np.asarray(_apply_bitplanes(consts, data)))
+    for b in (0, 3):
+        assert np.array_equal(got[b], np.stack(
+            CpuEncoder._apply_numpy(coeff, list(data[b]))))
+    assert np.array_equal(_apply_tables(consts, ragged)[0], np.stack(
+        CpuEncoder._apply_numpy(coeff, list(ragged[0]))))
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_table_model_matches_reference_for_every_input_count(smoke, k):
+    """k 1..16 at rows (k % 16) + 1: as above, with the plain PyTorch
+    version as a third witness."""
+    rows = k % 16 + 1
+    coeff, data, ragged = _table_case(smoke, rows, k, 200 + k)
+    consts = ref_gf.bitplane_constants(coeff)
+    got = _apply_tables(consts, data)
+    assert np.array_equal(got, np.asarray(_apply_bitplanes(consts, data)))
+    assert np.array_equal(got, gf256_transform_reference(
+        torch.from_numpy(consts), torch.from_numpy(data)).numpy())
+    assert np.array_equal(_apply_tables(consts, ragged)[0], np.stack(
+        CpuEncoder._apply_numpy(coeff, list(ragged[0]))))
+
+
+@pytest.mark.parametrize("name", sorted(COEFFS))
+def test_table_model_matches_reference_for_the_main_path(smoke, name):
+    """The encode and rebuild matrices of the main path, every byte value
+    at every lane."""
+    coeff = COEFFS[name]
+    consts = ref_gf.bitplane_constants(coeff)
+    data = smoke.every_byte(10, torch.device("cpu")).numpy()
+    assert np.array_equal(_apply_tables(consts, data),
+                          np.asarray(_apply_bitplanes(consts, data)))
+
+
+def test_table_model_on_every_phase2_case(smoke):
+    """Every case chip_smoke.py's phase 2 holds the kernel to, rehearsed
+    at a small window: the table model equals the plain version."""
+    cases = smoke.kernel_cases(torch.device("cpu"), 0, 4096)
+    for name, consts, x in cases:
+        want = gf256_transform_reference(consts, x).numpy()
+        got = _apply_tables(consts.numpy(), x.contiguous().numpy())
+        assert np.array_equal(got, want), name
+
+
 @pytest.mark.gpu
-def test_kernel_matches_plain():
+def test_kernel_matches_plain(smoke):
     """On the card: the CUDA kernel equals its plain version, byte for
     byte, for encode and rebuild matrices, ragged and strided inputs."""
     if not torch.cuda.is_available():
@@ -276,12 +467,26 @@ def test_kernel_matches_plain():
                               device=dev, generator=gen)
         assert torch.equal(gf256_transform(consts, block[:, :10]),
                            gf256_transform_reference(consts, block[:, :10]))
+        x = smoke.every_byte(10, dev)
+        assert torch.equal(gf256_transform(consts, x),
+                           gf256_transform_reference(consts, x))
+    # partial groups of 4 rows, k = 1 and 16, every byte at every lane
+    rng = np.random.default_rng(7)
+    extra = [(5, 10), (8, 10), (13, 16), (16, 16), (4, 1), (7, 3)]
+    for rows, k in extra:
+        consts = _consts(rng.integers(0, 256, (rows, k))).to(dev)
+        x = smoke.every_byte(k, dev)
+        got = gf256_transform(consts, x)
+        assert torch.equal(got, gf256_transform_reference(consts, x))
+        assert np.array_equal(got.cpu().numpy(),
+                              _apply_tables(consts.cpu().numpy(),
+                                            x.cpu().numpy()))
     torch.cuda.synchronize()
-    assert gf256_cuda.launches == before + 5 * len(COEFFS)
+    assert gf256_cuda.launches == before + 6 * len(COEFFS) + len(extra)
 
 
 @pytest.mark.gpu
-def test_stacked_kernel_matches_plain():
+def test_stacked_kernel_matches_plain(smoke):
     """On the card: the stacked entry equals its plain version, byte for
     byte, into a fresh output and into the strided parity rows of a
     (B, 14, L) block, at a ragged L, and counts its own launches."""
@@ -306,6 +511,22 @@ def test_stacked_kernel_matches_plain():
             gf256_stacked_transform_reference(consts, x, out=plain[:, 10:])
             assert torch.equal(block, plain)
             calls += 2
+    # every byte at every lane and partial groups, into rows that start
+    # 1..15 bytes off a 16-byte boundary
+    rng = np.random.default_rng(8)
+    for rows, k in ((4, 10), (5, 10), (13, 16)):
+        consts = _consts(rng.integers(0, 256, (rows, k))).to(dev)
+        x = smoke.every_byte(k, dev)
+        for off in (0, 1, 7, 15):
+            block = torch.zeros((2, k + rows, 4096 + 16), dtype=torch.uint8,
+                                device=dev)
+            out = block[:, k:, off:off + 4096]
+            gf256_stacked_transform(consts, x, out=out)
+            assert torch.equal(out, gf256_stacked_transform_reference(
+                consts, x))
+            assert not block[:, k:, :off].any()
+            assert not block[:, k:, off + 4096:].any()
+            calls += 1
     torch.cuda.synchronize()
     assert (gf256_cuda.launches, gf256_cuda.stacked_launches) == (
         before[0], before[1] + calls)
