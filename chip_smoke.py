@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (seaweedfs_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
-                          [--mesh-volumes N] [--mesh-mib N]
+                          [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
 
 Builds the port's CUDA kernels from the sources in this checkout, then:
 
@@ -33,8 +33,18 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    group: full_cycle_step on --mesh-volumes x 10 shards x --mesh-mib MiB
    made from --seed, then batched_verify clean and after one flipped
    parity byte, each held against the plain version; times the stacked
-   entry at the rank's encode and rebuild blocks, and prints one JSON
-   line describing each kernel.
+   entry at the rank's encode and rebuild blocks;
+7. runs the store tier as a volume server drives it (storage/store.py,
+   ec/ec_volume.py, ec/scrub.py) with the server's defaults (32 MiB
+   needle cache, 1 MiB recover threshold): writes needles from --seed
+   into one volume until its .dat reaches --store-mib MiB, EC-generates
+   and mounts it, reads every needle intact (pass A), verifies parity,
+   scrubs one flipped byte of .ec12, reads every needle with shards
+   {0,3,7,9} lost (pass B) and again with every recover on the card
+   (pass C, a sample held against the plain version), rebuilds, verifies
+   and reads again; checks each step's kernel launches against its
+   geometry, traces part of pass B and times the host-vs-card recover
+   crossover; then prints one JSON line describing each kernel.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -837,6 +847,413 @@ def time_mesh_blocks(seen: dict, dev: torch.device, card: str) -> dict:
     return t
 
 
+# -- phase 7: the store tier ---------------------------------------------------
+
+# scratch space for the store phase, inside the checkout (git-ignored);
+# apart from WORK_DIR, which trace_events empties
+STORE_DIR = os.path.join(ROOT, ".smoke_store")
+STORE_VID = 1
+# the volume server's -cache.mem default (seaweedfs_tpu/cli.py:251)
+NEEDLE_CACHE_BYTES = 32 << 20
+# the window of /admin/ec/verify's windowMB=1 default
+VERIFY_WINDOW = MIB
+SCRUB_SHARD = 12
+# the larger needles' size range: up to the filer's -chunkSizeMB 32 chunks
+# (seaweedfs_tpu/cli.py:311)
+LARGE_NEEDLE = (MIB, 32 * MIB)
+# size classes of the recovers pass C samples against the plain version
+RECOVER_CLASSES = ((1, 4096), (4096, 64 << 10), (64 << 10, MIB),
+                   (MIB, MIB + 1))
+
+
+def store_needle_specs(seed: int, target: int):
+    """Yield (nid, cookie, data, name, mime) until the records' bytes pass
+    `target`: three of every four needles are uniform in 1-64 KiB (the
+    small-file end, where `benchmark -size` defaults to 1 KiB), the
+    fourth uniform in LARGE_NEEDLE."""
+    rng = np.random.default_rng(seed)
+    total, nid = 8, 0
+    while total < target:
+        nid += 1
+        lo, hi = (LARGE_NEEDLE if nid % 4 == 0 else (1 << 10, 64 << 10))
+        size = int(rng.integers(lo, hi + 1))
+        name = f"obj-{nid:06d}.bin".encode()
+        mime = b"application/octet-stream" if nid % 2 else b"image/jpeg"
+        # the needle's size field: data length, data, flags, name, mime
+        total += st.actual_size(4 + size + 1 + 1 + len(name) + 1 + len(mime),
+                                st.CURRENT_VERSION)
+        yield (nid, int(rng.integers(1, 1 << 32)), rng.bytes(size), name,
+               mime)
+
+
+def percentile_ms(lat: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(lat) * 1e3, q)) if lat else 0.0
+
+
+def read_pass(store, specs: dict, order: list[int]) -> list[float]:
+    """Read every needle of `order` through Store.read_needle and hold
+    its bytes, name, mime and stored CRC to what was written; returns
+    each read's seconds."""
+    from seaweedfs_tpu_torch.util import crc32c
+    lat = []
+    for nid in order:
+        cookie, data, name, mime = specs[nid]
+        t0 = time.perf_counter()
+        n = store.read_needle(STORE_VID, nid, cookie)
+        lat.append(time.perf_counter() - t0)
+        check(n.data == data and n.name == name and n.mime == mime,
+              f"needle {nid}: read back differs from what was written")
+        check(n.checksum == crc32c.checksum_value(data),
+              f"needle {nid}: stored CRC differs from the data's")
+    return lat
+
+
+def lost_intervals(base: str, lost: list[int], large_block: int,
+                   small_block: int, order: list[int]) -> list[tuple]:
+    """(nid, shard, shard offset, size) of every interval of the needles
+    in `order` that lies on a lost shard, in the order reads recover
+    them: located from the .ecx with locate_data, as
+    EcVolume.read_needle locates them."""
+    from seaweedfs_tpu_torch.ec.locate import locate_data
+    from seaweedfs_tpu_torch.storage.needle_map import walk_index_blob
+    with open(base + ".ecx", "rb") as f:
+        index = {key: (off, size) for key, off, size in walk_index_blob(f.read())}
+    present = next(s for s in range(gf.TOTAL_SHARDS) if s not in lost)
+    dat_size = gf.DATA_SHARDS * os.path.getsize(base + pl.to_ext(present))
+    out = []
+    for nid in order:
+        off, size = index[nid]
+        for iv in locate_data(large_block, small_block, dat_size, off,
+                              st.actual_size(size, st.CURRENT_VERSION)):
+            sid, soff = iv.to_shard_and_offset(large_block, small_block)
+            if sid in lost:
+                out.append((nid, sid, soff, iv.size))
+    return out
+
+
+def split_at(intervals: list[tuple], threshold: int) -> tuple[int, int]:
+    """(intervals under the threshold, intervals at or above it): the
+    host CpuEncoder's recovers and the card's."""
+    big = sum(1 for iv in intervals if iv[3] >= threshold)
+    return len(intervals) - big, big
+
+
+def check_cache_cold(store, specs: dict, intervals: list[tuple]) -> None:
+    """Neither the needle cache nor the recover cache holds anything a
+    degraded read of this volume could be served from."""
+    nc, rc = store.needle_cache, store.ec_recover_cache
+    hot = [nid for nid in specs
+           if nc is not None and nc._lru.peek_contains((STORE_VID, nid))]
+    hot += [iv for iv in intervals if rc is not None
+            and rc.peek_contains((STORE_VID,) + iv[1:])]
+    check(hot == [], f"caches still hold {len(hot)} entries of volume "
+          f"{STORE_VID} before the degraded pass, first {hot[:3]}")
+
+
+def check_store_counts(seen: dict) -> int:
+    """Each step's kernel launches equal what its geometry and dispatch
+    counts say; returns the launches of the store path."""
+    for step, want in seen["expected"].items():
+        got = seen["launches"][step]
+        check(got == want, f"store path, {step}: {got} kernel launches, "
+              f"expected {want}")
+    return sum(seen["launches"].values())
+
+
+class RecordLaunches:
+    """Stands in for encoder_torch's gf256_transform during pass C: calls
+    the wrapper (which launches and counts), records every launch's input
+    shape, and keeps inputs and outputs of the chosen launch indices."""
+
+    def __init__(self, keep: set[int]):
+        self.keep = keep
+        self.shapes: list[tuple] = []
+        self.kept: dict[int, tuple] = {}
+
+    def __call__(self, consts, x):
+        out = gf256_transform(consts, x)
+        i = len(self.shapes)
+        self.shapes.append(tuple(x.shape))
+        if i in self.keep:
+            self.kept[i] = (consts, x.clone(), out.clone())
+        return out
+
+
+def sample_by_class(intervals: list[tuple], seed: int, per_class: int = 3
+                    ) -> set[int]:
+    """Seeded launch indices: up to per_class of each RECOVER_CLASSES."""
+    rng = np.random.default_rng(seed)
+    keep = set()
+    for lo, hi in RECOVER_CLASSES:
+        idx = [i for i, iv in enumerate(intervals) if lo <= iv[3] < hi]
+        if idx:
+            keep.update(int(i) for i in rng.choice(
+                idx, min(per_class, len(idx)), replace=False))
+    return keep
+
+
+def flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x01]))
+
+
+def phase_store(dev: torch.device, seed: int, target: int,
+                card: str = "") -> dict:
+    """The store tier as a volume server drives it, on one volume of
+    `target` bytes: write needles, EC-generate, read intact (A), verify
+    parity, scrub a flipped byte, read with 4 shards lost at the default
+    recover threshold (B) and with every recover on the device (C),
+    rebuild, verify and read again. Returns the launch counts and what
+    the geometry and the reports say they must be (check_store_counts)."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.ec.scrub import Scrubber
+    from seaweedfs_tpu_torch.ec import encoder_torch
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    tag = f"[{card}]" if card else ""
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    os.makedirs(STORE_DIR)
+    launches, expected, timing = {}, {}, {}
+
+    def counted(step: str, fn):
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    store = Store([STORE_DIR], needle_cache_bytes=NEEDLE_CACHE_BYTES)
+    try:
+        # -- write
+        store.add_volume(STORE_VID)
+        specs, order = {}, []
+        t0 = time.perf_counter()
+        written = 0
+        for nid, cookie, data, name, mime in store_needle_specs(seed, target):
+            store.write_needle(STORE_VID, Needle(
+                cookie=cookie, id=nid, data=data, name=name, mime=mime))
+            specs[nid] = (cookie, data, name, mime)
+            order.append(nid)
+            written += len(data)
+        write_s = time.perf_counter() - t0
+        v = store.volumes[STORE_VID]
+        dat_size = v.data_size()
+        base = v.file_name()
+        print(f"  write: {len(order)} needles, {written} needle bytes, "
+              f".dat {dat_size} bytes in {write_s:.3f} s = "
+              f"{written / write_s / 1e6:.1f} MB/s through "
+              f"Store.write_needle {tag}")
+
+        # -- generate, as /admin/ec/generate, then mount as ec.encode
+        store.mark_readonly(STORE_VID)
+        enc_stats: dict = {}
+
+        def generate():
+            pl.encode_volume(base, large_block=store.ec_large_block,
+                             small_block=store.ec_small_block,
+                             stats=enc_stats)
+            pl.write_sorted_file_from_idx(base)
+        counted("encode", generate)
+        expected["encode"] = enc_stats["dispatches"]
+        store.unmount_volume(STORE_VID)
+        store.delete_volume(STORE_VID)
+        mounted = store.mount_ec_shards("", STORE_VID)
+        check(mounted == list(range(gf.TOTAL_SHARDS)),
+              f"mounted shards {mounted}")
+        ev = store.ec_volumes[STORE_VID]
+        threshold = ev.small_recover_bytes
+        n_windows = -(-ev.shard_size // VERIFY_WINDOW)
+        print(f"  encode_volume + write_sorted_file_from_idx: "
+              f"{timing['encode']:.3f} s, {enc_stats['dispatches']} "
+              f"dispatches; mounted 14 shards of {ev.shard_size} bytes "
+              f"({n_windows} verify windows of 1 MiB) {tag}")
+
+        # -- pass A: intact reads
+        lat_a = counted("pass A", lambda: read_pass(store, specs, order))
+        expected["pass A"] = 0
+
+        # -- verify, as /admin/ec/verify windowMB=1
+        rep = counted("verify", lambda: ev.verify_parity(VERIFY_WINDOW))
+        check(rep["bad_windows"] == [] and rep["missing_shards"] == [],
+              f"clean volume: verify_parity reported {rep}")
+        check(rep["dispatches"] == math.ceil(
+            n_windows / ecb.DEFAULT_BATCH_WINDOWS),
+            f"verify dispatches {rep['dispatches']} for {n_windows} windows")
+        expected["verify"] = rep["dispatches"]
+
+        # -- scrub: one flipped byte of .ec12
+        flip_w = n_windows // 3
+        flip_at = flip_w * VERIFY_WINDOW + 777
+        flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_at)
+        rep = counted("verify flipped",
+                      lambda: ev.verify_parity(VERIFY_WINDOW))
+        check(rep["bad_windows"] == [flip_w * VERIFY_WINDOW],
+              f"one flipped byte in window {flip_w}: verify_parity "
+              f"reported {rep['bad_windows']}")
+        expected["verify flipped"] = rep["dispatches"]
+        scrubber = Scrubber(store, mbps=0.0)
+        cycle = counted("scrub", lambda: asyncio.run(scrubber.run_cycle()))
+        found = [(w["offset"], w["shards"]) for w in cycle["corrupt_windows"]]
+        check(found == [(flip_w * VERIFY_WINDOW, [SCRUB_SHARD])]
+              and cycle["errors"] == [],
+              f"scrub cycle found {found} (errors {cycle['errors']}), "
+              f"expected window {flip_w} localized to shard {SCRUB_SHARD}")
+        # 14 hypotheses, each a reconstruct and a re-verify
+        expected["scrub"] = cycle["dispatches"] + 2 * gf.TOTAL_SHARDS
+        flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_at)
+        print(f"  verify_parity: clean, {expected['verify']} dispatches in "
+              f"{timing['verify']:.3f} s; after a flipped byte of .ec12 "
+              f"only window {flip_w} in {timing['verify flipped']:.3f} s; "
+              f"Scrubber.run_cycle (mbps=0, {scrubber.batch_windows} "
+              f"windows a block): {cycle['dispatches']} dispatches, window "
+              f"{flip_w} localized to shard {SCRUB_SHARD}, "
+              f"{timing['scrub']:.3f} s {tag}")
+
+        # -- pass B: 4 lost shards, the default threshold
+        store.unmount_ec_shards(STORE_VID, LOST)
+        for sid in LOST:
+            os.remove(base + pl.to_ext(sid))
+        ivs = lost_intervals(base, LOST, store.ec_large_block,
+                             store.ec_small_block, order)
+        check_cache_cold(store, specs, ivs)
+        host_n, card_n = split_at(ivs, threshold)
+        lat_b = counted("pass B", lambda: read_pass(store, specs, order))
+        expected["pass B"] = card_n
+        print(f"  pass B: {len(ivs)} intervals on lost shards {LOST}: "
+              f"{host_n} under the {threshold}-byte threshold (host "
+              f"CpuEncoder), {card_n} at or above it (the card) {tag}")
+        trace_store_reads(store, specs, order, dev, card)
+
+        # -- pass C: every recover on the card
+        store_c = Store([STORE_DIR], needle_cache_bytes=NEEDLE_CACHE_BYTES,
+                        ec_small_recover_bytes=0)
+        check(sorted(store_c.ec_volumes) == [STORE_VID]
+              and sorted(store_c.ec_volumes[STORE_VID].shards)
+              == [s for s in range(gf.TOTAL_SHARDS) if s not in LOST],
+              "second store did not mount the degraded EC volume")
+        recorder = RecordLaunches(sample_by_class(ivs, seed))
+        encoder_torch.gf256_transform = recorder
+        try:
+            lat_c = counted("pass C",
+                            lambda: read_pass(store_c, specs, order))
+        finally:
+            encoder_torch.gf256_transform = gf256_transform
+            store_c.close()
+        expected["pass C"] = len(ivs)
+        want_shapes = [(1, gf.DATA_SHARDS, iv[3]) for iv in ivs]
+        check(recorder.shapes == want_shapes,
+              "pass C launches differ from the lost-shard intervals in "
+              "number, order or shape")
+        max_err = 0
+        for i in sorted(recorder.kept):
+            consts, x, out = recorder.kept[i]
+            max_err = max(max_err, abs_err(
+                out, gf256_transform_reference(consts, x)))
+        check(max_err == 0, f"pass C recovers differ from the plain "
+              f"version by {max_err}")
+        sizes = sorted({recorder.kept[i][1].shape[2] for i in recorder.kept})
+        print(f"  pass C (ec_small_recover_bytes=0): {len(ivs)} launches "
+              f"at (1, 10, n), n {min(iv[3] for iv in ivs)}..."
+              f"{max(iv[3] for iv in ivs)}; {len(recorder.kept)} sampled "
+              f"launches (n in {sizes}) equal the plain version on the "
+              f"card, max_abs_err {max_err} {tag}")
+
+        # -- rebuild, remount, verify, read intact again
+        reb_stats: dict = {}
+        rebuilt = counted("rebuild", lambda: pl.rebuild_ec_files(
+            base, stats=reb_stats))
+        check(rebuilt == LOST, f"rebuilt {rebuilt}, lost {LOST}")
+        expected["rebuild"] = reb_stats["dispatches"]
+        check(store.mount_ec_shards("", STORE_VID)
+              == list(range(gf.TOTAL_SHARDS)), "remount after rebuild")
+        ev = store.ec_volumes[STORE_VID]
+        rep = counted("verify rebuilt",
+                      lambda: ev.verify_parity(VERIFY_WINDOW))
+        check(rep["bad_windows"] == [] and rep["missing_shards"] == [],
+              f"rebuilt volume: verify_parity reported {rep}")
+        expected["verify rebuilt"] = rep["dispatches"]
+        lat_a2 = counted("pass A rebuilt",
+                         lambda: read_pass(store, specs, order))
+        expected["pass A rebuilt"] = 0
+        print(f"  rebuild_ec_files of {LOST}: {timing['rebuild']:.3f} s; "
+              f"remounted, verify_parity clean in "
+              f"{timing['verify rebuilt']:.3f} s {tag}")
+        for name, lat in (("A", lat_a), ("B", lat_b), ("C", lat_c),
+                          ("A after rebuild", lat_a2)):
+            print(f"  pass {name}: {len(lat)} needles in {sum(lat):.3f} s = "
+                  f"{len(lat) / sum(lat):.1f} needles/s, read latency p50 "
+                  f"{percentile_ms(lat, 50):.4f} ms, p99 "
+                  f"{percentile_ms(lat, 99):.4f} ms {tag}")
+        print(f"  store path kernel launches per step: {launches}")
+    finally:
+        store.close()
+        shutil.rmtree(STORE_DIR, ignore_errors=True)
+    return {"launches": launches, "expected": expected, "timing": timing,
+            "needles": len(order), "intervals": len(ivs),
+            "split": (host_n, card_n), "max_abs_err": max_err}
+
+
+def trace_store_reads(store, specs: dict, order: list[int],
+                      dev: torch.device, card: str, count: int = 32) -> None:
+    """A torch.profiler trace of pass B's first `count` reads, read again
+    with the volume's cache entries dropped so each recovers as in pass
+    B: the device's busy time and its idle share of the device window."""
+    if dev.type != "cuda":
+        return
+    from torch.profiler import ProfilerActivity, profile
+    store.drop_cached_volume(STORE_VID)
+    store.ec_recover_cache.drop_volume(STORE_VID)
+    part = order[:count]
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        read_pass(store, specs, part)
+        sync(dev)
+    wall = time.perf_counter() - t0
+    d = device_busy(trace_events(prof))
+    idle = (f"{d['idle_share']:.4f}" if d["idle_share"] is not None
+            else "not measured (the trace shows no device activity)")
+    print(f"  traced pass B reads of {len(part)} needles: {wall:.4f} s host; "
+          f"device busy {d['busy_ns'] / 1e6:.4f} ms of a "
+          f"{d['window_ns'] / 1e6:.4f} ms device window, idle share {idle} "
+          f"[{card}]")
+    for name, (total, n) in sorted(d["by_name"].items(),
+                                   key=lambda kv: -kv[1][0])[:4]:
+        print(f"    device {total / 1e6:9.4f} ms x{n}: {name[:90]}")
+
+
+def time_recover_crossover(card: str, reps: int = 20) -> None:
+    """Host seconds per recover of one lost row from 10 survivor
+    intervals of 4 KiB, 64 KiB, 256 KiB and 1 MiB, as
+    EcVolume._recover_interval runs it (pipeline._transform_buffers), on
+    the host CpuEncoder and on the card."""
+    from seaweedfs_tpu_torch.ec.encoder_cpu import CpuEncoder
+    rng = np.random.default_rng(7)
+    rows = present_for(LOST)
+    coeff = gf.cached_shard_rows((0,), tuple(rows))
+    encoders = (("host CpuEncoder", CpuEncoder()),
+                ("card", pl.get_encoder("gpu")))
+    for size in (4 << 10, 64 << 10, 256 << 10, MIB):
+        bufs = [rng.integers(0, 256, size, dtype=np.uint8) for _ in rows]
+        ms = {}
+        for name, enc in encoders:
+            pl._transform_buffers(enc, coeff, bufs)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                pl._transform_buffers(enc, coeff, bufs)
+            ms[name] = (time.perf_counter() - t0) / reps * 1e3
+        print(f"  recover of a {size}-byte interval: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f" per call [{card}]")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -848,6 +1265,8 @@ def parse_args(argv=None):
                    help="volumes of the mesh path's batch")
     p.add_argument("--mesh-mib", type=int, default=256,
                    help="bytes per shard of the mesh path")
+    p.add_argument("--store-mib", type=int, default=1024,
+                   help="size the store phase fills its volume's .dat to")
     return p.parse_args(argv)
 
 
@@ -926,12 +1345,22 @@ def main(argv=None) -> int:
         del mesh["encoded"], mesh["survivors"]
         time_mesh_step(mesh["device_mesh"], mesh["data"], dev)
         del mesh["data"]
+    torch.cuda.empty_cache()
+
+    print("== phase 7: the store tier (needle volume, EC volume, degraded "
+          "reads, scrub)")
+    store = phase_store(dev, args.seed, args.store_mib * MIB, card)
+    store_launches = check_store_counts(store)
+    print(f"  launches on the store path: {store_launches}, each step's "
+          f"equal to its expected count {store['expected']}")
+    time_recover_crossover(card)
 
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": main_launches + store_launches,
+        "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "held_against_plain": True}, {

@@ -12,8 +12,10 @@ kernel launch: 1 MB windows gathered eight at a time by the stripe-batch
 engine (ec/batch.py). On CUDA the launch is asynchronous, and reader and
 writer threads overlap file I/O with the device work.
 
-Every transform here goes through a `TorchEncoder`; there is no other
-encoder and no silent numpy path.
+Every bulk transform here goes through a `TorchEncoder`. The one other
+encoder `_transform_buffers` takes is the host `CpuEncoder`, which
+EcVolume chooses for small degraded-read recovers; there is no silent
+numpy path.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..storage.needle_map import pack_entry, walk_index_blob, \
 from . import gf
 from .batch import (DEFAULT_BATCH_WINDOWS, add_stat, clamp_batch_windows,
                     transform_block_async, window_blocks)
+from .encoder_cpu import CpuEncoder
 from .encoder_torch import TorchEncoder
 from .locate import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, locate_data
 
@@ -63,23 +66,29 @@ def get_encoder(backend: str = "auto") -> TorchEncoder:
     return TorchEncoder(device="cpu" if backend == "cpu" else "cuda")
 
 
-def _transform_buffers_async(encoder: TorchEncoder, coeff: np.ndarray,
+def _transform_buffers_async(encoder, coeff: np.ndarray,
                              buffers: list[np.ndarray]):
     """Launch the GF transform of k equal-length host byte buffers and
     return a thunk that yields the output byte buffers when called.
 
-    The buffers travel as one (1, k, n) block through the encoder's
+    A TorchEncoder takes the buffers as one (1, k, n) block through its
     pinned-buffer launch; on CUDA the thunk waits on the stream event
-    recorded after the copy back."""
+    recorded after the copy back. The host CpuEncoder, which EcVolume
+    picks for recovers under its small_recover_bytes, computes eagerly
+    and the thunk is a no-op. Any other encoder raises TypeError."""
+    if isinstance(encoder, CpuEncoder):
+        out = encoder._apply(np.asarray(coeff, np.uint8),
+                             [np.asarray(b, np.uint8) for b in buffers])
+        return lambda: out
     if not isinstance(encoder, TorchEncoder):
-        raise TypeError(f"the port's pipeline runs a TorchEncoder, got "
-                        f"{type(encoder).__name__}")
+        raise TypeError(f"the port's pipeline runs a TorchEncoder or a "
+                        f"CpuEncoder, got {type(encoder).__name__}")
     block = np.stack([np.asarray(b, np.uint8) for b in buffers])[None]
     thunk = encoder.transform_async(coeff, block)
     return lambda: list(thunk()[0])
 
 
-def _transform_buffers(encoder: TorchEncoder, coeff: np.ndarray,
+def _transform_buffers(encoder, coeff: np.ndarray,
                        buffers: list[np.ndarray]) -> list[np.ndarray]:
     """Apply a GF coefficient matrix to equal-length host byte buffers."""
     return _transform_buffers_async(encoder, coeff, buffers)()

@@ -1,11 +1,14 @@
 """chip_smoke.py refuses to run without a CUDA device, and in a directory
-that holds it alone: it exits non-zero and prints no result line."""
+that holds it alone: it exits non-zero and prints no result line. Its
+phases rehearse on the CPU at small sizes, where the plain versions
+stand in for the kernel."""
 
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -184,3 +187,120 @@ def test_trace_events_read_back_a_profiler_trace(monkeypatch):
     assert all(end >= start for _, start, end, _ in ops)
     assert chip_smoke.device_busy(events)["idle_share"] is None
     assert not os.path.exists(chip_smoke.WORK_DIR)
+
+
+def test_store_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 7 on a store of a few MiB on the CPU, the plain PyTorch
+    version standing in for the kernel: every needle reads back equal in
+    passes A, B and C and after the rebuild, verify and scrub find
+    exactly the flipped window (the scrub localizes it to shard 12), and
+    pass C's recovers equal the lost-shard intervals in number, order and
+    shape. The expected launch counts follow from the geometry and the
+    reports; no launch counts on the CPU, so the check of them fails
+    until they are met, and fails again when one launch is missing."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE",
+                        (chip_smoke.MIB, 3 * chip_smoke.MIB))
+    seen = chip_smoke.phase_store(torch.device("cpu"), 3,
+                                  5 * chip_smoke.MIB)
+    exp = seen["expected"]
+    assert set(seen["launches"].values()) == {0}
+    assert exp["pass A"] == exp["pass A rebuilt"] == 0
+    host_n, card_n = seen["split"]
+    assert card_n > 0 and host_n > 0
+    assert exp["pass B"] == card_n
+    assert exp["pass C"] == seen["intervals"] == host_n + card_n
+    assert exp["scrub"] >= 1 + 28
+    assert exp["verify"] == exp["verify flipped"] == exp["verify rebuilt"]
+    assert seen["max_abs_err"] == 0
+    assert not os.path.exists(chip_smoke.STORE_DIR)
+    with pytest.raises(RuntimeError, match="kernel launches"):
+        chip_smoke.check_store_counts(seen)
+    seen["launches"] = dict(exp)
+    assert chip_smoke.check_store_counts(seen) == sum(exp.values())
+    seen["launches"]["pass B"] -= 1
+    with pytest.raises(RuntimeError, match="pass B: .* expected"):
+        chip_smoke.check_store_counts(seen)
+
+
+def test_lost_interval_count_matches_a_byte_walk(monkeypatch, tmp_path):
+    """lost_intervals, counted from the .ecx with locate_data, agrees with
+    a walk over every byte of every record in the small-block area: the
+    same bytes lie on lost shards, in as many block pieces; split_at puts
+    exactly the whole-block pieces at or above a 1-block threshold."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from seaweedfs_tpu_torch.storage import types as st
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.needle_map import walk_index_blob
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    small = 4096
+    v = Volume(str(tmp_path), "", 1)
+    rng = np.random.default_rng(1)
+    for nid in range(1, 41):
+        v.write_needle(Needle(cookie=nid, id=nid, data=rng.bytes(
+            int(rng.integers(1, 3 * small)))))
+    v.close()
+    base = str(tmp_path / "1")
+    pl = chip_smoke.pl
+    pl.encode_volume(base, encoder=pl.get_encoder("cpu"),
+                     large_block=16 * small, small_block=small,
+                     buffer_size=small)
+    pl.write_sorted_file_from_idx(base)
+    lost = chip_smoke.LOST
+    order = list(range(1, 41))
+    ivs = chip_smoke.lost_intervals(base, lost, 16 * small, small, order)
+    with open(base + ".ecx", "rb") as f:
+        index = {k: (o, s) for k, o, s in walk_index_blob(f.read())}
+    want_bytes, want_pieces, whole = 0, 0, 0
+    for nid in order:
+        off, size = index[nid]
+        end = off + st.actual_size(size, st.CURRENT_VERSION)
+        for block in range(off // small, (end - 1) // small + 1):
+            if block % 10 in lost:
+                lo, hi = max(off, block * small), min(end, (block + 1) * small)
+                want_bytes += hi - lo
+                want_pieces += 1
+                whole += hi - lo == small
+    assert sum(iv[3] for iv in ivs) == want_bytes > 0
+    assert len(ivs) == want_pieces
+    assert chip_smoke.split_at(ivs, small) == (want_pieces - whole, whole)
+    assert whole > 0
+    assert all(iv[1] in lost for iv in ivs)
+
+
+def test_cache_cold_check_sees_needle_and_recover_entries(monkeypatch,
+                                                          tmp_path):
+    """The precondition of pass B fails while the needle cache holds a
+    needle of the volume or the recover cache holds one of its lost-shard
+    intervals, and holds once both are dropped."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    store = Store([str(tmp_path)],
+                  needle_cache_bytes=chip_smoke.NEEDLE_CACHE_BYTES)
+    try:
+        vid = chip_smoke.STORE_VID
+        store.add_volume(vid)
+        store.write_needle(vid, Needle(cookie=5, id=5, data=b"x" * 100))
+        specs = {5: (5, b"x" * 100, b"", b"")}
+        ivs = [(5, 3, 4096, 100)]
+        chip_smoke.check_cache_cold(store, specs, ivs)
+        store.read_needle(vid, 5, 5)
+        with pytest.raises(RuntimeError, match="caches still hold"):
+            chip_smoke.check_cache_cold(store, specs, ivs)
+        store.drop_cached_volume(vid)
+        chip_smoke.check_cache_cold(store, specs, ivs)
+        store.ec_recover_cache.put((vid, 3, 4096, 100), b"y" * 100)
+        with pytest.raises(RuntimeError, match="caches still hold"):
+            chip_smoke.check_cache_cold(store, specs, ivs)
+        store.ec_recover_cache.drop_volume(vid)
+        chip_smoke.check_cache_cold(store, specs, ivs)
+    finally:
+        store.close()

@@ -1,7 +1,8 @@
 """The PyTorch/CUDA port stands alone: importing any of its modules, or
 chip_smoke.py, loads neither jax nor the JAX package (seaweedfs_tpu),
-builds no kernel, creates no process group, and no source file of the
-port imports either."""
+builds no kernel and no native host library, creates no process group,
+and no source file of the port imports either. Running the port's host
+C routines maps its own library, never the JAX package's."""
 
 import ast
 import json
@@ -49,9 +50,11 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from seaweedfs_tpu_torch.ops import _build\n"
+        "from seaweedfs_tpu_torch.native import build as native\n"
         "import torch.distributed as dist\n"
         "print(json.dumps({'modules': sorted(sys.modules),\n"
         "                  'loaded': sorted(_build._loaded),\n"
+        "                  'native': native.loaded(),\n"
         "                  'group': dist.is_initialized()}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -61,12 +64,51 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     for mod in ("seaweedfs_tpu_torch.ec.pipeline", "chip_smoke",
                 "seaweedfs_tpu_torch.parallel.mesh",
                 "seaweedfs_tpu_torch.parallel.dist",
-                "seaweedfs_tpu_torch.entry"):
+                "seaweedfs_tpu_torch.entry",
+                "seaweedfs_tpu_torch.storage.store",
+                "seaweedfs_tpu_torch.ec.ec_volume",
+                "seaweedfs_tpu_torch.ec.scrub",
+                "seaweedfs_tpu_torch.ec.encoder_cpu",
+                "seaweedfs_tpu_torch.stats.metrics"):
         assert mod in report["modules"], mod
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == [], leaked
     assert report["loaded"] == []
+    assert report["native"] is False
     assert report["group"] is False
+
+
+def test_port_maps_its_own_native_library_only(tmp_path):
+    """A store round trip in the port (CRC32C on write and read, the
+    native needle map, a host GF(256) recover) maps the port's native
+    library from seaweedfs_tpu_torch/_build/ and nothing from the JAX
+    package's seaweedfs_tpu/native/."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from seaweedfs_tpu_torch.ec import gf\n"
+        "from seaweedfs_tpu_torch.ec.encoder_cpu import CpuEncoder\n"
+        "from seaweedfs_tpu_torch.storage.needle import Needle\n"
+        "from seaweedfs_tpu_torch.storage.store import Store\n"
+        "st = Store([sys.argv[1]], index_type='compact')\n"
+        "st.add_volume(1)\n"
+        "st.write_needle(1, Needle(cookie=1, id=1, data=b'x' * 100))\n"
+        "assert st.read_needle(1, 1).data == b'x' * 100\n"
+        "st.close()\n"
+        "enc = CpuEncoder()\n"
+        "assert enc.use_native\n"
+        "enc.encode([np.zeros(64, np.uint8)] * gf.DATA_SHARDS)\n"
+        "maps = [line.split()[-1] for line in open('/proc/self/maps')\n"
+        "        if 'libswtpu_native' in line]\n"
+        "print(json.dumps(sorted(set(maps))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    maps = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(maps) == 1, maps
+    assert os.path.dirname(maps[0]) == os.path.join(PORT, "_build")
 
 
 @pytest.mark.parametrize(
