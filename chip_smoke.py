@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
+                          [--server-mib N]
 
 Builds the port's CUDA kernels from the sources in this checkout, then:
 
@@ -44,7 +45,19 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    (pass C, a sample held against the plain version), rebuilds, verifies
    and reads again; checks each step's kernel launches against its
    geometry, traces part of pass B and times the host-vs-card recover
-   crossover; then prints one JSON line describing each kernel.
+   crossover;
+8. runs the volume server (server/volume_server.py) as its users drive
+   it, over HTTP: starts it in process through the port CLI's start-up
+   coroutine (cli.start_volume, -ecBackend gpu, the -cache.mem and
+   -ec.smallrecover defaults, no master), POSTs the needles of phase 7's
+   generator until the .dat reaches --server-mib MiB, calls
+   /admin/ec/generate (parity held to the host CpuEncoder), GETs every
+   needle intact (pass A) and with shards {0,3,7,9} deleted (pass B),
+   calls /admin/ec/rebuild (sha256-equal to the deleted files),
+   /admin/ec/verify clean and after one flipped byte of .ec12, and a
+   forced /debug/scrub cycle that must localize it to shard 12; checks
+   each step's kernel launches against its geometry and reports; then
+   prints one JSON line describing each kernel.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -938,24 +951,25 @@ def split_at(intervals: list[tuple], threshold: int) -> tuple[int, int]:
     return len(intervals) - big, big
 
 
-def check_cache_cold(store, specs: dict, intervals: list[tuple]) -> None:
+def check_cache_cold(store, specs: dict, intervals: list[tuple],
+                     vid: int = STORE_VID) -> None:
     """Neither the needle cache nor the recover cache holds anything a
     degraded read of this volume could be served from."""
     nc, rc = store.needle_cache, store.ec_recover_cache
     hot = [nid for nid in specs
-           if nc is not None and nc._lru.peek_contains((STORE_VID, nid))]
+           if nc is not None and nc._lru.peek_contains((vid, nid))]
     hot += [iv for iv in intervals if rc is not None
-            and rc.peek_contains((STORE_VID,) + iv[1:])]
+            and rc.peek_contains((vid,) + iv[1:])]
     check(hot == [], f"caches still hold {len(hot)} entries of volume "
-          f"{STORE_VID} before the degraded pass, first {hot[:3]}")
+          f"{vid} before the degraded pass, first {hot[:3]}")
 
 
-def check_store_counts(seen: dict) -> int:
+def check_store_counts(seen: dict, path: str = "store path") -> int:
     """Each step's kernel launches equal what its geometry and dispatch
-    counts say; returns the launches of the store path."""
+    counts say; returns the launches of the path."""
     for step, want in seen["expected"].items():
         got = seen["launches"][step]
-        check(got == want, f"store path, {step}: {got} kernel launches, "
+        check(got == want, f"{path}, {step}: {got} kernel launches, "
               f"expected {want}")
     return sum(seen["launches"].values())
 
@@ -1254,6 +1268,265 @@ def time_recover_crossover(card: str, reps: int = 20) -> None:
               + f" per call [{card}]")
 
 
+# -- phase 8: the volume server over HTTP -------------------------------------
+
+# the server's store directory, inside the checkout (git-ignored)
+SERVER_DIR = os.path.join(ROOT, ".smoke_server")
+SERVER_VID = 1
+
+
+def dead_master() -> str:
+    """host:port where nothing listens: the server's heartbeats fail and
+    retry, and everything is served locally."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def server_args(backend: str) -> list[str]:
+    """The port CLI's `volume` command line for phase 8: port 0, the
+    -cache.mem and -ec.smallrecover defaults written out, and an unpaced
+    scrubber (-scrub.mbps 0: the default 8 MiB/s would take minutes over
+    a 1 GiB volume; phase 7's Scrubber runs unpaced too)."""
+    return ["volume", "-port", "0", "-dir", SERVER_DIR,
+            "-master", dead_master(), "-ecBackend", backend,
+            "-cache.mem", "32", "-ec.smallrecover", str(MIB),
+            "-scrub.mbps", "0", "-scrub.pausems", "0"]
+
+
+def host_parity_matches(base: str, chunk: int = 4 * MIB) -> bool:
+    """The 4 parity shard files equal the host CpuEncoder's parity of the
+    10 data shard files, computed chunk by chunk: an oracle that does
+    not touch the card."""
+    from seaweedfs_tpu_torch.ec.encoder_cpu import CpuEncoder
+    enc = CpuEncoder()
+    files = [open(base + pl.to_ext(s), "rb") for s in range(gf.TOTAL_SHARDS)]
+    try:
+        while True:
+            rows = [f.read(chunk) for f in files]
+            if not rows[0]:
+                return all(r == b"" for r in rows)
+            want = enc.encode(rows[:gf.DATA_SHARDS])[gf.DATA_SHARDS:]
+            if any(w.tobytes() != r for w, r in
+                   zip(want, rows[gf.DATA_SHARDS:])):
+                return False
+    finally:
+        for f in files:
+            f.close()
+
+
+def phase_server(dev: torch.device, seed: int, target: int, card: str = "",
+                 backend: str = "gpu") -> dict:
+    """The volume server as its users drive it, over HTTP: start it with
+    the port CLI's start-up coroutine, write the needles of phase 7's
+    generator up to `target` bytes, /admin/ec/generate, read every needle
+    intact (A) and with shards {0,3,7,9} lost (B), /admin/ec/rebuild,
+    /admin/ec/verify clean and after one flipped byte of .ec12, and a
+    forced /debug/scrub cycle that must localize it. Returns the launch
+    counts and what the geometry and the reports say they must be."""
+    import asyncio
+    import aiohttp
+    print(f"  aiohttp {aiohttp.__version__}")
+    shutil.rmtree(SERVER_DIR, ignore_errors=True)
+    os.makedirs(SERVER_DIR)
+    try:
+        return asyncio.run(_drive_server(dev, seed, target, card, backend))
+    finally:
+        shutil.rmtree(SERVER_DIR, ignore_errors=True)
+
+
+async def _drive_server(dev: torch.device, seed: int, target: int,
+                        card: str, backend: str) -> dict:
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.util import crc32c
+
+    tag = f"[{card}]" if card else ""
+    launches, expected, timing = {}, {}, {}
+    vid = SERVER_VID
+    base = os.path.join(SERVER_DIR, str(vid))
+
+    async def counted(step: str, coro):
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = await coro
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    vs, rec = await cli.start_volume(
+        cli.build_parser().parse_args(server_args(backend)))
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    url = f"http://{vs.url}"
+
+    async def admin(path: str, **params) -> dict:
+        async with http.post(url + path, params=params) as r:
+            body = await r.json()
+            check(r.status == 200, f"POST {path} {params}: {r.status} "
+                  f"{body}")
+            return body
+
+    def fid(nid: int, cookie: int) -> str:
+        return f"{vid},{nid:x}{cookie:08x}"
+
+    async def read_all(order: list[int], specs: dict) -> list[float]:
+        lat = []
+        for nid in order:
+            cookie, data, name, mime = specs[nid]
+            t0 = time.perf_counter()
+            async with http.get(f"{url}/{fid(nid, cookie)}") as r:
+                body = await r.read()
+                status, etag = r.status, r.headers.get("ETag")
+            lat.append(time.perf_counter() - t0)
+            check(status == 200 and body == data,
+                  f"GET needle {nid}: status {status}, "
+                  f"{len(body)} bytes, expected {len(data)}")
+            check(etag == f'"{crc32c.crc32c(data) & 0xFFFFFFFF:08x}"',
+                  f"GET needle {nid}: ETag {etag} is not the data's CRC")
+        return lat
+
+    try:
+        # -- write over HTTP, then seal
+        await admin("/admin/volume/allocate", volume=str(vid))
+        specs, order, written = {}, [], 0
+        t0 = time.perf_counter()
+        for nid, cookie, data, name, mime in store_needle_specs(seed,
+                                                                target):
+            form = aiohttp.FormData()
+            form.add_field("file", data, filename=name.decode(),
+                           content_type=mime.decode())
+            async with http.post(f"{url}/{fid(nid, cookie)}",
+                                 data=form) as r:
+                check(r.status == 201, f"POST needle {nid}: {r.status} "
+                      f"{await r.text()}")
+            specs[nid] = (cookie, data, name, mime)
+            order.append(nid)
+            written += len(data)
+        timing["write"] = time.perf_counter() - t0
+        await admin("/admin/volume/readonly", volume=str(vid))
+        dat_size = os.path.getsize(base + ".dat")
+        print(f"  write: {len(order)} needles, {written} needle bytes, "
+              f".dat {dat_size} bytes in {timing['write']:.3f} s = "
+              f"{written / timing['write'] / 1e6:.1f} MB/s through POST "
+              f"/<fid> (multipart) {tag}")
+
+        # -- generate
+        gen = await counted("generate",
+                            admin("/admin/ec/generate", volume=str(vid)))
+        want = math.ceil(gen["windows"] / ecb.DEFAULT_BATCH_WINDOWS)
+        check(gen["dispatches"] == want,
+              f"/admin/ec/generate: {gen['dispatches']} dispatches for "
+              f"{gen['windows']} windows, expected {want}")
+        expected["generate"] = want
+        check(host_parity_matches(base),
+              "parity shard files differ from the host CpuEncoder's")
+        print(f"  /admin/ec/generate: {timing['generate']:.3f} s, "
+              f"{gen['windows']} windows in {gen['dispatches']} "
+              f"dispatches; parity files equal the host CpuEncoder's {tag}")
+
+        # -- mount the 14 shards, drop the normal volume, read intact
+        mounted = await admin("/admin/ec/mount", volume=str(vid))
+        check(mounted["shards"] == list(range(gf.TOTAL_SHARDS)),
+              f"mounted shards {mounted}")
+        await admin("/admin/volume/delete", volume=str(vid))
+        store = vs.store
+        ev = store.ec_volumes[vid]
+        lat_a = await counted("pass A", read_all(order, specs))
+        expected["pass A"] = 0
+
+        # -- lose shards {0,3,7,9}, cold caches, read degraded
+        sha_lost = {sid: sha_file(base + pl.to_ext(sid)) for sid in LOST}
+        lost = ",".join(map(str, LOST))
+        await admin("/admin/ec/unmount", volume=str(vid), shards=lost)
+        await admin("/admin/ec/delete_shards", volume=str(vid), shards=lost)
+        check(not any(os.path.exists(base + pl.to_ext(s)) for s in LOST),
+              "lost shard files still on disk")
+        ivs = lost_intervals(base, LOST, store.ec_large_block,
+                             store.ec_small_block, order)
+        store.drop_cached_volume(vid)
+        store.ec_recover_cache.drop_volume(vid)
+        check_cache_cold(store, specs, ivs, vid)
+        host_n, card_n = split_at(ivs, ev.small_recover_bytes)
+        lat_b = await counted("pass B", read_all(order, specs))
+        expected["pass B"] = card_n
+        print(f"  pass B: {len(ivs)} intervals on lost shards {LOST}: "
+              f"{host_n} under the {ev.small_recover_bytes}-byte threshold "
+              f"(host CpuEncoder), {card_n} at or above it (the EC "
+              f"engine) {tag}")
+
+        # -- rebuild
+        reb = await counted("rebuild",
+                            admin("/admin/ec/rebuild", volume=str(vid)))
+        check(reb["rebuilt"] == LOST, f"rebuilt {reb}, lost {LOST}")
+        got_sha = {sid: sha_file(base + pl.to_ext(sid)) for sid in LOST}
+        check(got_sha == sha_lost, "rebuilt shard files differ from the "
+              "deleted ones (sha256)")
+        n_windows = -(-ev.shard_size // VERIFY_WINDOW)
+        expected["rebuild"] = math.ceil(n_windows /
+                                        ecb.DEFAULT_BATCH_WINDOWS)
+        mounted = await admin("/admin/ec/mount", volume=str(vid))
+        check(mounted["shards"] == list(range(gf.TOTAL_SHARDS)),
+              f"remounted shards {mounted}")
+        print(f"  /admin/ec/rebuild of {LOST}: {timing['rebuild']:.3f} s, "
+              f"sha256-equal to the deleted files {tag}")
+
+        # -- verify clean, then one flipped byte of .ec12, then scrub
+        rep = await counted("verify", admin(
+            "/admin/ec/verify", volume=str(vid), windowMB="1"))
+        check(rep["bad_windows"] == [] and rep["missing_shards"] == [],
+              f"clean volume: /admin/ec/verify reported {rep}")
+        check(rep["dispatches"] == expected["rebuild"],
+              f"verify dispatches {rep['dispatches']} for {n_windows} "
+              f"windows")
+        expected["verify"] = rep["dispatches"]
+        flip_w = n_windows // 3
+        flip_at = flip_w * VERIFY_WINDOW + 777
+        flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_at)
+        rep = await counted("verify flipped", admin(
+            "/admin/ec/verify", volume=str(vid), windowMB="1"))
+        check(rep["bad_windows"] == [flip_w * VERIFY_WINDOW],
+              f"one flipped byte in window {flip_w}: /admin/ec/verify "
+              f"reported {rep['bad_windows']}")
+        expected["verify flipped"] = rep["dispatches"]
+        scrub = await counted("scrub", admin("/debug/scrub", run="1"))
+        cycle = scrub["cycle"]
+        found = [(w["volume"], w["offset"], w["shards"])
+                 for w in cycle["corrupt_windows"]]
+        check(found == [(vid, flip_w * VERIFY_WINDOW, [SCRUB_SHARD])]
+              and cycle["errors"] == [],
+              f"/debug/scrub cycle found {found} (errors "
+              f"{cycle['errors']}), expected window {flip_w} localized to "
+              f"shard {SCRUB_SHARD}")
+        # 14 hypotheses, each a reconstruct and a re-verify
+        expected["scrub"] = cycle["dispatches"] + 2 * gf.TOTAL_SHARDS
+        flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_at)
+        print(f"  /admin/ec/verify windowMB=1: clean, {expected['verify']} "
+              f"dispatches in {timing['verify']:.3f} s; after a flipped "
+              f"byte of .ec12 only window {flip_w} in "
+              f"{timing['verify flipped']:.3f} s; /debug/scrub?run=1: "
+              f"{cycle['dispatches']} dispatches, window {flip_w} "
+              f"localized to shard {SCRUB_SHARD}, {timing['scrub']:.3f} s "
+              f"{tag}")
+        for name, lat in (("A", lat_a), ("B", lat_b)):
+            print(f"  GET pass {name}: {len(lat)} needles in "
+                  f"{sum(lat):.3f} s = {len(lat) / sum(lat):.1f} needles/s, "
+                  f"latency p50 {percentile_ms(lat, 50):.4f} ms, p99 "
+                  f"{percentile_ms(lat, 99):.4f} ms {tag}")
+        print(f"  wall seconds per step: "
+              f"{ {k: round(v, 4) for k, v in timing.items()} } {tag}")
+        print(f"  server path kernel launches per step: {launches} {tag}")
+    finally:
+        await http.close()
+        await vs.stop()
+        if rec is not None:
+            rec.cancel()
+    return {"launches": launches, "expected": expected, "timing": timing,
+            "needles": len(order), "intervals": len(ivs),
+            "split": (host_n, card_n)}
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1267,6 +1540,8 @@ def parse_args(argv=None):
                    help="bytes per shard of the mesh path")
     p.add_argument("--store-mib", type=int, default=1024,
                    help="size the store phase fills its volume's .dat to")
+    p.add_argument("--server-mib", type=int, default=1024,
+                   help="size the server phase fills its volume's .dat to")
     return p.parse_args(argv)
 
 
@@ -1355,11 +1630,18 @@ def main(argv=None) -> int:
           f"equal to its expected count {store['expected']}")
     time_recover_crossover(card)
 
+    print("== phase 8: the volume server over HTTP (EC generate, degraded "
+          "GETs, rebuild, verify, scrub)")
+    server = phase_server(dev, args.seed, args.server_mib * MIB, card)
+    server_launches = check_store_counts(server, "server path")
+    print(f"  launches on the server path: {server_launches}, each step's "
+          f"equal to its expected count {server['expected']}")
+
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
-        "launches": main_launches + store_launches,
+        "launches": main_launches + store_launches + server_launches,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -41,9 +42,23 @@ MAX_ROWS = 16
 MAX_K = 16
 
 # kernel launches made by gf256_transform and by gf256_stacked_transform,
-# the counts chip_smoke.py reads to show which path went through which
+# the counts chip_smoke.py reads to show which path went through which.
+# A volume server launches from several executor threads at once (an
+# admin request, a degraded read, the scrubber), so each count is raised
+# under _count_lock: a bare `+= 1` on a module global can lose a launch.
 launches = 0
 stacked_launches = 0
+_count_lock = threading.Lock()
+
+
+def count_launch(stacked: bool = False) -> None:
+    """Add one to `launches`, or to `stacked_launches`, under the lock."""
+    global launches, stacked_launches
+    with _count_lock:
+        if stacked:
+            stacked_launches += 1
+        else:
+            launches += 1
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -157,8 +172,7 @@ def gf256_transform(consts: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((x.shape[0], consts.shape[0], x.shape[2]),
                       dtype=torch.uint8, device=x.device)
     if _launch(consts, x, out):
-        global launches
-        launches += 1
+        count_launch()
     return out
 
 
@@ -180,8 +194,7 @@ def gf256_stacked_transform(consts: torch.Tensor, x: torch.Tensor,
     if x.device.type == "cpu":
         return _reference_into(consts, x, out)
     if _launch(consts, x, out):
-        global stacked_launches
-        stacked_launches += 1
+        count_launch(stacked=True)
     return out
 
 

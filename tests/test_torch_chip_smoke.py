@@ -226,6 +226,55 @@ def test_store_phase_rehearses_on_the_cpu(monkeypatch):
         chip_smoke.check_store_counts(seen)
 
 
+def test_server_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 8 on a volume of a few MiB on the CPU: the port volume
+    server starts through the CLI's start-up coroutine with -ecBackend
+    cpu, every needle written over HTTP reads back equal (with its CRC as
+    ETag) intact and with 4 shards lost, the parity files equal the host
+    CpuEncoder's, the rebuilt files are sha256-equal to the deleted ones,
+    and verify and the forced scrub cycle find exactly the flipped window
+    of shard 12. No launch counts on the CPU, so the launch check fails
+    until the expected counts are met."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE",
+                        (chip_smoke.MIB, 3 * chip_smoke.MIB))
+    seen = chip_smoke.phase_server(torch.device("cpu"), 3,
+                                   5 * chip_smoke.MIB, backend="cpu")
+    exp = seen["expected"]
+    assert set(seen["launches"].values()) == {0}
+    assert exp["pass A"] == 0
+    host_n, card_n = seen["split"]
+    assert card_n > 0 and host_n > 0 and exp["pass B"] == card_n
+    assert exp["generate"] == exp["rebuild"] == exp["verify"] \
+        == exp["verify flipped"] >= 1
+    assert exp["scrub"] >= 1 + 28
+    assert not os.path.exists(chip_smoke.SERVER_DIR)
+    with pytest.raises(RuntimeError, match="server path, generate"):
+        chip_smoke.check_store_counts(seen, "server path")
+    seen["launches"] = dict(exp)
+    assert chip_smoke.check_store_counts(seen, "server path") \
+        == sum(exp.values())
+
+
+def test_server_phase_cli_line_keeps_the_server_defaults(monkeypatch):
+    """Phase 8's command line: port 0, -ecBackend as asked, and the
+    -cache.mem and -ec.smallrecover values the CLI defaults to."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from seaweedfs_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(chip_smoke.server_args("gpu"))
+    defaults = cli.build_parser().parse_args(["volume"])
+    assert (args.port, args.ecBackend, args.dir) == (
+        0, "gpu", chip_smoke.SERVER_DIR)
+    assert (args.cache_mem, args.ec_smallrecover) == (
+        defaults.cache_mem, defaults.ec_smallrecover) == (32, 1 << 20)
+    assert args.workers == 1
+
+
 def test_lost_interval_count_matches_a_byte_walk(monkeypatch, tmp_path):
     """lost_intervals, counted from the .ecx with locate_data, agrees with
     a walk over every byte of every record in the small-block area: the

@@ -1,0 +1,122 @@
+"""In-process cluster of the port's volume servers under the JAX package's
+master, for the port's server tests (no test cases in this file).
+
+The port of tests/cluster_util.py: one reference `MasterServer` (the
+port has no master yet; it speaks HTTP to the volume servers) and N
+`seaweedfs_tpu_torch` `VolumeServer`s on one event loop, every one bound
+to port 0. While the cluster is up, SWTPU_TORCH_EC_BACKEND is `cpu`, so
+the port's EC handlers run the kernel's plain PyTorch version on this
+host, and it is restored on exit.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import os
+import socket
+
+import aiohttp
+
+from seaweedfs_tpu.master.server import MasterServer
+from seaweedfs_tpu_torch.ec.pipeline import BACKEND_ENV
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+from seaweedfs_tpu_torch.storage.store import Store
+
+
+class Cluster:
+    """Reference master + N port volume servers on ephemeral ports."""
+
+    def __init__(self, tmpdir: str, n_servers: int = 3,
+                 racks: list[tuple[str, str]] | None = None,
+                 pulse: float = 0.2, max_volumes: int = 16,
+                 ec_large_block: int = 16 * 1024,
+                 ec_small_block: int = 1024,
+                 master_kwargs: dict | None = None):
+        self.tmpdir = tmpdir
+        self.n = n_servers
+        self.racks = racks or [("dc1", "rack1")] * n_servers
+        self.pulse = pulse
+        self.max_volumes = max_volumes
+        self.ec_large_block = ec_large_block
+        self.ec_small_block = ec_small_block
+        self.master: MasterServer | None = None
+        self.servers: list[VolumeServer] = []
+        self.http: aiohttp.ClientSession | None = None
+        self.master_kwargs = master_kwargs or {}
+        self._env: str | None = None
+
+    async def __aenter__(self) -> "Cluster":
+        self._env = os.environ.get(BACKEND_ENV)
+        os.environ[BACKEND_ENV] = "cpu"
+        self.master = MasterServer(port=0, pulse_seconds=self.pulse,
+                                   volume_size_limit_mb=64,
+                                   **self.master_kwargs)
+        await self.master.start()
+        for i in range(self.n):
+            d = os.path.join(self.tmpdir, f"srv{i}")
+            store = Store([d], max_volume_counts=[self.max_volumes],
+                          ec_large_block=self.ec_large_block,
+                          ec_small_block=self.ec_small_block)
+            dc, rack = self.racks[i]
+            vs = VolumeServer(store, self.master.url, port=0,
+                              data_center=dc, rack=rack,
+                              pulse_seconds=self.pulse)
+            await vs.start()
+            await vs.heartbeat_once()
+            self.servers.append(vs)
+        self.http = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(total=30))
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        if self.http:
+            await self.http.close()
+        for vs in self.servers:
+            with contextlib.suppress(Exception):
+                await vs.stop()
+        with contextlib.suppress(Exception):
+            await self.master.stop()
+        if self._env is None:
+            os.environ.pop(BACKEND_ENV, None)
+        else:
+            os.environ[BACKEND_ENV] = self._env
+
+    # -- client helpers --
+
+    async def assign(self, **params) -> dict:
+        async with self.http.get(
+                f"http://{self.master.url}/dir/assign",
+                params=params) as resp:
+            return await resp.json()
+
+    async def put(self, fid: str, url: str, data: bytes,
+                  **params) -> tuple[int, dict]:
+        async with self.http.post(f"http://{url}/{fid}", data=data,
+                                  params=params) as resp:
+            return resp.status, await resp.json()
+
+    async def get(self, fid: str, url: str) -> tuple[int, bytes]:
+        async with self.http.get(f"http://{url}/{fid}",
+                                 allow_redirects=True) as resp:
+            return resp.status, await resp.read()
+
+    async def delete(self, fid: str, url: str) -> int:
+        async with self.http.delete(f"http://{url}/{fid}") as resp:
+            return resp.status
+
+    async def heartbeat_all(self) -> None:
+        for vs in self.servers:
+            await vs.heartbeat_once()
+
+
+def run(coro):
+    return asyncio.run(coro)
+
+
+def dead_master() -> str:
+    """host:port where nothing listens, for a volume server started
+    without a master: its heartbeats fail at once and retry."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"

@@ -69,13 +69,40 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.ec.ec_volume",
                 "seaweedfs_tpu_torch.ec.scrub",
                 "seaweedfs_tpu_torch.ec.encoder_cpu",
-                "seaweedfs_tpu_torch.stats.metrics"):
+                "seaweedfs_tpu_torch.stats.metrics",
+                "seaweedfs_tpu_torch.cli",
+                "seaweedfs_tpu_torch.server.volume_server",
+                "seaweedfs_tpu_torch.server.fasthttp",
+                "seaweedfs_tpu_torch.server.frameserver",
+                "seaweedfs_tpu_torch.util.client"):
         assert mod in report["modules"], mod
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == [], leaked
     assert report["loaded"] == []
     assert report["native"] is False
     assert report["group"] is False
+
+
+def test_cli_and_volume_server_alone_load_no_jax():
+    """The volume server's entry points on their own: importing the CLI
+    and the server and building the CLI's parser loads no jax and
+    nothing of seaweedfs_tpu, builds nothing and starts no server."""
+    code = (
+        "import json, sys\n"
+        "import seaweedfs_tpu_torch.cli as cli\n"
+        "import seaweedfs_tpu_torch.server.volume_server\n"
+        "cli.build_parser().parse_args(['volume', '-ecBackend', 'cpu'])\n"
+        "from seaweedfs_tpu_torch.ops import _build\n"
+        "print(json.dumps({'modules': sorted(sys.modules),\n"
+        "                  'loaded': sorted(_build._loaded)}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in report["modules"] if _forbidden(m)] == []
+    assert "seaweedfs_tpu_torch.server.wire" in report["modules"]
+    assert report["loaded"] == []
 
 
 def test_port_maps_its_own_native_library_only(tmp_path):

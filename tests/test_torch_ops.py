@@ -111,6 +111,42 @@ def test_plain_max_shape_and_empty():
     assert empty.shape == (3, 4, 0)
 
 
+def test_launch_counts_are_raised_under_the_lock(monkeypatch):
+    """The volume server launches from several executor threads at once
+    (an admin request, a degraded read, the scrubber). count_launch
+    raises each count only while it holds _count_lock: a thread that
+    counts waits while another holds the lock, and the count it adds is
+    there once the lock is free."""
+    import threading
+    monkeypatch.setattr(gf256_cuda, "launches", 0)
+    monkeypatch.setattr(gf256_cuda, "stacked_launches", 0)
+    for stacked, held, after in ((False, (0, 0), (1, 0)),
+                                 (True, (1, 0), (1, 1))):
+        with gf256_cuda._count_lock:
+            t = threading.Thread(target=gf256_cuda.count_launch,
+                                 args=(stacked,))
+            t.start()
+            t.join(timeout=0.2)
+            assert t.is_alive()
+            assert (gf256_cuda.launches, gf256_cuda.stacked_launches) \
+                == held
+        t.join(timeout=10)
+        assert not t.is_alive()
+        assert (gf256_cuda.launches, gf256_cuda.stacked_launches) == after
+
+    def many(stacked):
+        for _ in range(5000):
+            gf256_cuda.count_launch(stacked=stacked)
+    threads = [threading.Thread(target=many, args=(i % 2 == 1,))
+               for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert (gf256_cuda.launches, gf256_cuda.stacked_launches) == \
+        (1 + 4 * 5000, 1 + 4 * 5000)
+
+
 def test_cpu_tensors_run_the_plain_version_without_counting():
     before = gf256_cuda.launches
     x = torch.zeros((1, 10, 64), dtype=torch.uint8)

@@ -5,7 +5,11 @@ and failpoint-injected corruption, paces itself under its token-bucket
 byte budget and pauses behind hot foreground traffic. Failpoints are
 armed on the port's own registry (seaweedfs_tpu_torch.util.failpoints),
 which the JAX package's registry does not reach; the last case shows
-that. The /debug/scrub endpoint waits for the volume server's port."""
+that. The last cases drive /debug/scrub on a port volume server under
+the reference master (test_torch_cluster_util), and hold a forced cycle
+to localizing one flipped parity byte to its shard: scrub.py catches a
+failure to localize and reports the window unlocalized, so only this
+check turns such a failure into a failed test."""
 
 import asyncio
 import os
@@ -21,6 +25,7 @@ from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.util import failpoints as fp
+from test_torch_cluster_util import Cluster
 
 
 
@@ -398,3 +403,65 @@ def test_failpoints_are_the_ports_own_registry(ec_store):
     fp.arm("scrub.read", "flip:3")
     report = run(s.run_cycle())
     assert report["corrupt"] == 1
+
+
+def test_debug_scrub_endpoint(tmp_path):
+    async def go():
+        async with Cluster(str(tmp_path), n_servers=1) as c:
+            vs = c.servers[0]
+            async with c.http.get(
+                    f"http://{vs.url}/debug/scrub") as r:
+                assert r.status == 200
+                body = await r.json()
+            st = body["scrub"]
+            assert st["enabled"] is False     # default interval 0
+            assert st["state"] == "idle"
+            # POST ?run=1 forces a cycle even with the loop disabled
+            async with c.http.post(
+                    f"http://{vs.url}/debug/scrub?run=1") as r:
+                assert r.status == 200
+                body = await r.json()
+            assert body["cycle"]["volumes"] == 0
+            assert body["status"]["cycles"] == 1
+            async with c.http.post(
+                    f"http://{vs.url}/debug/scrub") as r:
+                assert r.status == 400
+    run(go())
+
+
+def test_debug_scrub_localizes_a_flipped_parity_byte(tmp_path):
+    async def go():
+        async with Cluster(str(tmp_path), n_servers=1) as c:
+            vs = c.servers[0]
+            # -scrub.pausems 0: on a loaded host the cluster's own
+            # requests pass 50 ms and would park the cycle; the pause
+            # gate has its own case above
+            vs.scrubber.pause_ms = 0
+            rng = random.Random(11)
+            vid = None
+            for _ in range(12):
+                a = await c.assign()
+                vid = int(a["fid"].split(",")[0])
+                data = rng.randbytes(rng.randint(1, 3 * LB))
+                assert (await c.put(a["fid"], a["url"], data))[0] == 201
+            # EC-encode the volume of the last fid (it holds >= 1 needle)
+            for path in ("/admin/volume/readonly", "/admin/ec/generate",
+                         "/admin/ec/mount", "/admin/volume/delete"):
+                async with c.http.post(f"http://{vs.url}{path}",
+                                       params={"volume": str(vid)}) as r:
+                    assert r.status == 200, (path, await r.text())
+            base = vs._base_name(vid, "")
+            with open(base + pl.to_ext(12), "r+b") as f:
+                f.seek(100)
+                b = f.read(1)
+                f.seek(100)
+                f.write(bytes([b[0] ^ 0x01]))
+            async with c.http.post(
+                    f"http://{vs.url}/debug/scrub?run=1") as r:
+                assert r.status == 200
+                cycle = (await r.json())["cycle"]
+            assert cycle["errors"] == []
+            found = [(w["volume"], w["offset"], w["shards"])
+                     for w in cycle["corrupt_windows"]]
+            assert found == [(vid, 0, [12])], cycle
+    run(go())

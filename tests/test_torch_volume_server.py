@@ -1,0 +1,342 @@
+"""The port's volume server against the JAX package's, over HTTP.
+
+A reference `VolumeServer` and a port `VolumeServer` hold the same sealed
+.dat: it is written through the reference server, and its .dat/.idx are
+copied into the port server's directory and mounted there (needle writes
+stamp an append time, so two servers written alike hold different
+files). Then both get the same requests, and the answers must be equal
+byte for byte: the 14 shard files and the .ecx of /admin/ec/generate and
+its window/dispatch counts, the /admin/ec/verify reports clean and after
+a flipped byte, the files /admin/ec/rebuild writes after the same four
+shards are deleted, and every needle GET (status, body, ETag,
+Content-Length) intact and with the four shards lost, where every
+recover of the port runs on its EC engine. No master runs:
+each server's heartbeat fails and retries, and everything is served
+locally. The port's EC engine is the kernel's plain PyTorch version
+(SWTPU_TORCH_EC_BACKEND=cpu).
+
+Also here: two /admin/ec/verify requests in flight at once on the port
+server, a failpoint armed in the reference's registry that leaves the
+port server alone, and the handlers whose modules are not ported yet,
+which answer 500 naming the port module without loading seaweedfs_tpu.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import aiohttp
+import numpy as np
+import pytest
+
+from seaweedfs_tpu.server.volume_server import VolumeServer as RefServer
+from seaweedfs_tpu.storage.store import Store as RefStore
+from seaweedfs_tpu.util import failpoints as ref_fp
+from seaweedfs_tpu_torch.ec.pipeline import BACKEND_ENV
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.util import failpoints as fp
+from test_torch_cluster_util import dead_master
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VID = 7
+LOST = [0, 3, 7, 9]
+# the reference harness's EC geometry (tests/cluster_util.py)
+EC_BLOCKS = {"ec_large_block": 16 * 1024, "ec_small_block": 1024}
+N_NEEDLES = 60
+
+
+def _needles(seed: int = 3) -> list[tuple[str, bytes, str]]:
+    """(fid, body, content type): sizes from 1 byte to 3 large blocks, so
+    needles cross block and shard boundaries."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(1, N_NEEDLES + 1):
+        size = int(rng.integers(1, 3 * EC_BLOCKS["ec_large_block"]))
+        cookie = int(rng.integers(1, 1 << 32))
+        ctype = ("text/plain", "application/octet-stream",
+                 "application/json")[i % 3]
+        out.append((f"{VID},{i:x}{cookie:08x}", rng.bytes(size), ctype))
+    return out
+
+
+class Pair:
+    """A reference and a port volume server on one event loop."""
+
+    def __init__(self, tmp: str):
+        self.dirs = (os.path.join(tmp, "ref"), os.path.join(tmp, "port"))
+        master = dead_master()
+        self.ref = RefServer(RefStore([self.dirs[0]], **EC_BLOCKS), master,
+                             port=0, pulse_seconds=60)
+        # every degraded recover of the port goes through its EC engine
+        # (TorchEncoder), none through the host CpuEncoder
+        self.port = VolumeServer(Store([self.dirs[1]], **EC_BLOCKS,
+                                       ec_small_recover_bytes=0),
+                                 master, port=0, pulse_seconds=60)
+        self.http: aiohttp.ClientSession | None = None
+
+    async def __aenter__(self) -> "Pair":
+        await self.ref.start()
+        await self.port.start()
+        self.http = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(total=60))
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        await self.http.close()
+        for vs in (self.port, self.ref):
+            await vs.stop()
+
+    async def post(self, vs, path: str, **params):
+        async with self.http.post(f"http://{vs.url}{path}",
+                                  params=params) as r:
+            return r.status, await r.json()
+
+    async def both(self, path: str, **params):
+        """POST `path` to both servers; returns (ref, port) answers."""
+        return (await self.post(self.ref, path, **params),
+                await self.post(self.port, path, **params))
+
+    async def get(self, vs, fid: str):
+        async with self.http.get(f"http://{vs.url}/{fid}") as r:
+            return (r.status, await r.read(), r.headers.get("ETag"),
+                    r.headers.get("Content-Length"))
+
+    def base(self, side: int) -> str:
+        return os.path.join(self.dirs[side], str(VID))
+
+    async def seed_volume(self) -> list[tuple[str, bytes, str]]:
+        """Write the needles through the reference server, seal the
+        volume and mount a copy of its .dat/.idx on the port server."""
+        st, body = await self.post(self.ref, "/admin/volume/allocate",
+                                   volume=str(VID))
+        assert st == 200, body
+        needles = _needles()
+        for fid, data, ctype in needles:
+            async with self.http.post(f"http://{self.ref.url}/{fid}",
+                                      data=data,
+                                      headers={"Content-Type": ctype}) as r:
+                assert r.status == 201, await r.text()
+        assert (await self.post(self.ref, "/admin/volume/readonly",
+                                volume=str(VID)))[0] == 200
+        assert (await self.post(self.ref, "/admin/volume/unmount",
+                                volume=str(VID)))[0] == 200
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(self.base(0) + ext, self.base(1) + ext)
+        for vs in (self.ref, self.port):
+            st, body = await self.post(vs, "/admin/volume/mount",
+                                       volume=str(VID))
+            assert st == 200, body
+        return needles
+
+    async def to_ec(self) -> None:
+        """Mount all 14 shards and drop the normal volume on both."""
+        for path in ("/admin/ec/mount", "/admin/volume/delete"):
+            ref, port = await self.both(path, volume=str(VID))
+            assert ref == port and ref[0] == 200, (path, ref, port)
+
+    def files(self, side: int, exts) -> dict[str, bytes]:
+        out = {}
+        for ext in exts:
+            with open(self.base(side) + ext, "rb") as f:
+                out[ext] = f.read()
+        return out
+
+    async def all_gets(self, needles) -> None:
+        for fid, data, _ in needles:
+            ref, port = await self.get(self.ref, fid), \
+                await self.get(self.port, fid)
+            assert port == ref, fid
+            assert port[0] == 200 and port[1] == data, fid
+
+
+SHARD_EXTS = [".ec%02d" % s for s in range(14)]
+
+
+@pytest.fixture
+def ec_backend_cpu(monkeypatch):
+    monkeypatch.setenv(BACKEND_ENV, "cpu")
+
+
+def _flip(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x5A]))
+
+
+def test_ec_http_surface_matches_reference(tmp_path, ec_backend_cpu):
+    async def go():
+        async with Pair(str(tmp_path)) as p:
+            needles = await p.seed_volume()
+            await p.all_gets(needles)
+
+            # generate: same counts, byte-identical shards and .ecx
+            ref, port = await p.both("/admin/ec/generate", volume=str(VID))
+            assert ref == port and ref[0] == 200, (ref, port)
+            assert port[1]["dispatches"] >= 1
+            exts = SHARD_EXTS + [".ecx"]
+            assert p.files(1, exts) == p.files(0, exts)
+            await p.to_ec()
+            await p.all_gets(needles)
+
+            # verify: equal reports, clean and after a flipped byte
+            ref, port = await p.both("/admin/ec/verify", volume=str(VID))
+            assert ref == port and port[1]["bad_windows"] == [], (ref, port)
+            for side in (0, 1):
+                _flip(p.base(side) + ".ec12", 1000)
+            ref, port = await p.both("/admin/ec/verify", volume=str(VID))
+            assert ref == port and port[1]["bad_windows"] == [0], (ref, port)
+            for side in (0, 1):
+                _flip(p.base(side) + ".ec12", 1000)
+
+            # 4 shards lost: degraded GETs, then rebuild
+            lost = ",".join(map(str, LOST))
+            originals = p.files(1, [SHARD_EXTS[s] for s in LOST])
+            for path in ("/admin/ec/unmount", "/admin/ec/delete_shards"):
+                ref, port = await p.both(path, volume=str(VID), shards=lost)
+                assert ref == port and ref[0] == 200, (path, ref, port)
+            assert not os.path.exists(p.base(1) + ".ec00")
+            await p.all_gets(needles)
+            ref, port = await p.both("/admin/ec/rebuild", volume=str(VID))
+            assert ref == port and port[1]["rebuilt"] == LOST, (ref, port)
+            rebuilt = p.files(1, [SHARD_EXTS[s] for s in LOST])
+            assert rebuilt == p.files(0, [SHARD_EXTS[s] for s in LOST])
+            assert rebuilt == originals
+    asyncio.run(go())
+
+
+def test_concurrent_verifies_both_match_reference(tmp_path, ec_backend_cpu):
+    """Two verifies in flight on one server run in two executor threads,
+    each through the EC engine at once; both report what the reference
+    reports, clean and with a flipped byte."""
+    async def go():
+        async with Pair(str(tmp_path)) as p:
+            await p.seed_volume()
+            await p.both("/admin/ec/generate", volume=str(VID))
+            await p.to_ec()
+            for flip in (False, True):
+                if flip:
+                    for side in (0, 1):
+                        _flip(p.base(side) + ".ec11", 20000)
+                want = await p.post(p.ref, "/admin/ec/verify",
+                                    volume=str(VID))
+                got = await asyncio.gather(*(
+                    p.post(p.port, "/admin/ec/verify", volume=str(VID))
+                    for _ in range(2)))
+                assert got == [want, want], (flip, want, got)
+                assert (want[1]["bad_windows"] != []) == flip
+    asyncio.run(go())
+
+
+def test_reference_failpoint_leaves_port_server_alone(tmp_path,
+                                                      ec_backend_cpu):
+    """A read failpoint armed in the JAX package's registry fails the
+    reference server's reads and none of the port server's, and the
+    port's /debug/failpoints lists nothing armed."""
+    async def go():
+        async with Pair(str(tmp_path)) as p:
+            needles = await p.seed_volume()
+            fid, data, _ = needles[0]
+            ref_fp.arm("store.read", "error")
+            try:
+                assert (await p.get(p.ref, fid))[0] >= 500
+                assert (await p.get(p.port, fid))[:2] == (200, data)
+                async with p.http.get(
+                        f"http://{p.port.url}/debug/failpoints") as r:
+                    armed = await r.json()
+                assert fp.list_armed() == []
+                assert "store.read" not in json.dumps(armed)
+            finally:
+                ref_fp.reset()
+            assert (await p.get(p.ref, fid))[:2] == (200, data)
+    asyncio.run(go())
+
+
+# the handlers whose modules are not ported yet: (method, path, query,
+# the port module its ImportError must name)
+UNPORTED = [
+    ("GET", "/debug/health", {}, "seaweedfs_tpu_torch.stats"),
+    ("GET", "/debug/profile", {}, "seaweedfs_tpu_torch.stats"),
+    ("GET", "/debug/pprof", {}, "seaweedfs_tpu_torch.util"),
+    ("POST", "/admin/query", {}, "seaweedfs_tpu_torch.query"),
+    ("POST", "/admin/vacuum/compact", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+    ("POST", "/admin/vacuum/commit", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+    ("POST", "/admin/vacuum/cleanup", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+    ("GET", "/admin/volume/tail", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+    ("POST", "/admin/volume/tail_receive", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+    ("POST", "/admin/tier/upload", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+    ("POST", "/admin/tier/download", {"volume": "1"},
+     "seaweedfs_tpu_torch.storage"),
+]
+
+_UNPORTED_SCRIPT = r"""
+import asyncio, json, sys
+import aiohttp
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.util.client import FilerHttpClient
+
+CASES = json.loads(sys.argv[2])
+
+async def main():
+    store = Store([sys.argv[1]])
+    store.add_volume(1)
+    vs = VolumeServer(store, sys.argv[3], port=0, pulse_seconds=60)
+    await vs.start()
+    out = []
+    try:
+        async with aiohttp.ClientSession() as http:
+            for method, path, query, _ in CASES:
+                async with http.request(method, f"http://{vs.url}{path}",
+                                        params=query, json={}) as r:
+                    out.append([path, r.status, await r.text()])
+    finally:
+        await vs.stop()
+    try:
+        FilerHttpClient(["127.0.0.1:1"])
+        out.append(["FilerHttpClient", 0, "constructed"])
+    except ImportError as e:
+        out.append(["FilerHttpClient", 500, str(e)])
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "seaweedfs_tpu"))
+    print(json.dumps({"answers": out, "leaked": leaked}))
+
+asyncio.run(main())
+"""
+
+
+def test_unported_handlers_answer_500_naming_the_port(tmp_path):
+    """Run in a process of its own with only the port imported: every
+    handler of a module not ported yet answers 500 with an error naming
+    the seaweedfs_tpu_torch module, and afterwards neither jax nor any
+    seaweedfs_tpu module is loaded. The filer route cache of
+    util/client.py fails the same way."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _UNPORTED_SCRIPT, str(tmp_path),
+         json.dumps(UNPORTED), dead_master()],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["leaked"] == []
+    wants = [(path, mod) for _, path, _, mod in UNPORTED] + [
+        ("FilerHttpClient", "seaweedfs_tpu_torch.filer")]
+    assert [a[0] for a in report["answers"]] == [w[0] for w in wants]
+    for (path, status, text), (_, mod) in zip(report["answers"], wants):
+        assert status == 500, (path, status, text)
+        assert mod in text, (path, text)
+        assert "seaweedfs_tpu." not in text.replace(
+            "seaweedfs_tpu_torch", ""), (path, text)
