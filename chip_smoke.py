@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
-                          [--server-mib N]
+                          [--server-mib N] [--mxu-extra-mib N]
+                          [--workers-mib N]
 
-Builds the port's CUDA kernels from the sources in this checkout, then:
+Builds the port's CUDA sources from this checkout (the GF(256) kernel,
+and the unpack and pack kernels of the GF(2) bit-matrix product), then:
 
 1. prints the device facts (nvidia-smi name and power limit, torch and
    CUDA versions, kernel build time, the compiler's register report and
@@ -19,7 +21,12 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    (B, 14, L)[:, :10] view and views whose rows start 1..15 bytes off a
    16-byte boundary; and its stacked entry (K2's port) writing into a
    strided (B, 14, L)[:, 10:] view at a ragged L = 264 * 512 + 5 and
-   into out= views 1..15 bytes off a 16-byte boundary;
+   into out= views 1..15 bytes off a 16-byte boundary; and the GF(2)
+   bit-matrix product (K4's port) byte-equal to its plain version and to
+   the GF(256) kernel: encode 4x10, rebuild for lost {0,3,7,9}, rows=1,
+   rows=k=16, k=1, every byte value in every input row, a ragged L =
+   1 MiB + 3, L under 17 bytes, the pipeline block, a strided view, rows
+   off a 16-byte boundary, and calls that take several chunks;
 3. runs the flagship steps of models/ec_model.py (encode, rebuild of
    lost {0,3,7,9}, verify) on 10 shards x 256 MiB resident on the card,
    checks each against the plain version and times it;
@@ -29,7 +36,9 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    shards are deleted and rebuilt by rebuild_ec_files, the .dat is
    decoded back by write_dat_file, and every window is verified by
    batch.verify_block before and after one flipped byte;
-5. times the kernel and its plain version at the pipeline's block shape;
+5. times the kernel and its plain version at the pipeline's block shape,
+   and the bit-matrix product (its unpack, torch._int_mm and pack apart)
+   at that block and at one 1 MiB rows=1 recover;
 6. runs the multi-device mesh path (parallel/mesh.py) on a one-rank NCCL
    group: full_cycle_step on --mesh-volumes x 10 shards x --mesh-mib MiB
    made from --seed, then batched_verify clean and after one flipped
@@ -56,8 +65,23 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    calls /admin/ec/rebuild (sha256-equal to the deleted files),
    /admin/ec/verify clean and after one flipped byte of .ec12, and a
    forced /debug/scrub cycle that must localize it to shard 12; checks
-   each step's kernel launches against its geometry and reports; then
-   prints one JSON line describing each kernel.
+   each step's kernel launches against its geometry and reports;
+9. starts a fresh server with SWTPU_TORCH_EC_METHOD=mxu on phase 8's
+   sealed volume and one more volume of --mxu-extra-mib MiB written over
+   HTTP: /admin/ec/generate_batch of both (parity sha256-equal to phase
+   8's and to the host CpuEncoder's), every needle of phase 8's volume
+   with shards {0,3,7,9} deleted (the same recovers as phase 8, through
+   the bit-matrix product), /admin/ec/rebuild and a forced scrub cycle
+   that localizes a flipped byte of .ec12 through it; checks each step's
+   launches of both kernels;
+10. runs `python -m seaweedfs_tpu_torch.cli volume -workers 2 -ecBackend
+   gpu` on a free port: one volume of --workers-mib MiB in each worker's
+   partition written through the shared port, /admin/ec/generate of both
+   (ceil(W/8) dispatches, parity equal to the host CpuEncoder's), the
+   needles of worker 1's volume read with 4 shards lost, each worker
+   holding a CUDA context of its own, and again after worker 1 is
+   SIGKILLed and respawned; then prints one JSON line describing each
+   kernel.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -87,10 +111,13 @@ from seaweedfs_tpu_torch.ec import gf
 from seaweedfs_tpu_torch.ec import pipeline as pl
 from seaweedfs_tpu_torch.ec.encoder_torch import device_consts
 from seaweedfs_tpu_torch.models import ec_model
-from seaweedfs_tpu_torch.ops import _build, gf256_cuda
+from seaweedfs_tpu_torch.ops import _build, gf256_cuda, gf256_mxu
 from seaweedfs_tpu_torch.ops.gf256_cuda import (
     gf256_stacked_transform, gf256_stacked_transform_reference,
     gf256_transform, gf256_transform_reference)
+from seaweedfs_tpu_torch.ops.gf256_mxu import (
+    device_bitmatrix, gf2_bitmatrix_transform,
+    gf2_bitmatrix_transform_reference)
 from seaweedfs_tpu_torch.parallel import dist as pdist
 from seaweedfs_tpu_torch.parallel import mesh as pmesh
 from seaweedfs_tpu_torch.storage import types as st
@@ -375,6 +402,92 @@ def phase_stacked_vs_plain(dev: torch.device, seed: int) -> int:
           f"shifted inputs: max_abs_err={err}")
     check(err == 0, "stacked entry differs from its plain version on "
           "misaligned out= views")
+    return max_err
+
+
+def mxu_cases(dev: torch.device, seed: int, block: int = MIB
+              ) -> list[tuple]:
+    """(name, coeff, x, chunk_bytes) for every shape phase 2 holds K4's
+    port to; `block` is the window of the pipeline-sized cases (the tests
+    rehearse them on the CPU at a small window)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    rng = np.random.default_rng(seed + 5)
+    parity = gf.parity_matrix()
+    # the default budget on the card; scaled with the window elsewhere
+    chunk = gf256_mxu.CHUNK_BYTES * block // MIB
+    per_col = 8 * gf.DATA_SHARDS + 32 * gf.PARITY_SHARDS
+    cases = [
+        ("encode 4x10 (2, 10, 64 KiB)", parity, rand(2, 10, 64 << 10),
+         chunk),
+        (f"rebuild lost {LOST} (3, 10, 300001)",
+         gf.shard_rows(LOST, present_for(LOST)), rand(3, 10, 300_001),
+         chunk),
+        ("rows=1 (1, 10, 4097)", gf.shard_rows([12], present_for([12])),
+         rand(1, 10, 4097), chunk),
+        ("rows=k=16 (2, 16, 65 KiB + 1)", rng.integers(0, 256, (16, 16)),
+         rand(2, 16, (65 << 10) + 1), chunk),
+        ("k=1 random 4x1 (2, 1, 64 KiB + 7)", rng.integers(0, 256, (4, 1)),
+         rand(2, 1, (64 << 10) + 7), chunk),
+        ("every byte at every lane, encode 4x10", parity,
+         every_byte(10, dev), chunk),
+        ("every byte at every lane, random 13x16",
+         rng.integers(0, 256, (13, 16)), every_byte(16, dev), chunk),
+        (f"ragged L = {block} + 3", parity, rand(2, 10, block + 3), chunk),
+        ("L = 13 under 17 bytes (1, 10, 13)", parity, rand(1, 10, 13),
+         chunk),
+        ("L = 1 (3, 10, 1)", parity, rand(3, 10, 1), chunk),
+        (f"pipeline block (8, 10, {block})", parity, rand(8, 10, block),
+         chunk),
+        (f"strided (4, 14, {block // 4})[:, :10]", parity,
+         rand(4, 14, block // 4)[:, :gf.DATA_SHARDS], chunk),
+        ("x rows 3 bytes off 16 (2, 10, 4101)", parity,
+         rand(2, 10, 8192)[:, :, 3:3 + 4101], chunk),
+        ("small chunks of 1000 columns (8, 10, 64 KiB + 5)", parity,
+         rand(8, 10, (64 << 10) + 5), per_col * 1000),
+        ("small chunks of 3 windows (40, 10, 333)", parity,
+         rand(40, 10, 333), per_col * 1000),
+    ]
+    # several chunks at that budget: whole windows, then column ranges of
+    # one window
+    cols = chunk // per_col
+    cases.append((f"several chunks of whole windows (64, 10, {block // 16})",
+                  parity, rand(64, 10, block // 16), chunk))
+    cases.append((f"several chunks of one window (2, 10, {4 * block})",
+                  parity, rand(2, 10, 4 * block), chunk))
+    for name, coeff, x, cb in cases:
+        rows, k = np.asarray(coeff).shape
+        n_chunks = len(list(gf256_mxu.chunks(x.shape[0], x.shape[2], k,
+                                              rows, cb)))
+        if "several" in name:
+            check(n_chunks > 1, f"{name}: {n_chunks} chunk at {cols} "
+                  f"columns a chunk")
+    return cases
+
+
+def phase_mxu_vs_plain(dev: torch.device, seed: int,
+                       block: int = MIB) -> int:
+    """K4's port byte-equal to its plain version and to K1 on every case
+    of mxu_cases; returns the max absolute byte difference."""
+    max_err = 0
+    for name, coeff, x, cb in mxu_cases(dev, seed, block):
+        bitmat = device_bitmatrix(coeff, dev)
+        got = gf2_bitmatrix_transform(bitmat, x, cb)
+        want = gf2_bitmatrix_transform_reference(bitmat, x, cb)
+        k1 = gf256_transform(device_consts(coeff, dev), x)
+        sync(dev)
+        err = max(abs_err(got, want), abs_err(got, k1))
+        max_err = max(max_err, err)
+        rows, k = np.asarray(coeff).shape
+        n_chunks = len(list(gf256_mxu.chunks(x.shape[0], x.shape[2], k,
+                                              rows, cb)))
+        print(f"  K4 vs plain and K1: {name}, {n_chunks} chunk(s): "
+              f"max_abs_err={err}")
+        check(err == 0, f"K4 differs from its plain version or K1: {name}")
     return max_err
 
 
@@ -674,6 +787,71 @@ def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
     return report_timing(f"pipeline block ({bsz}, {k}, {length}) encode",
                          ms, b2b_ms, plain_ms,
                          bound(consts.shape[0], k, bsz, length), dev, card)
+
+
+def time_mxu(dev: torch.device, seed: int, card: str) -> dict:
+    """K4's port at the pipeline block (8, 10, 1 MiB) encode and at one
+    1 MiB rows=1 recover (1, 10, 1 MiB): the whole wrapper, its unpack,
+    torch._int_mm and pack apart (each over every chunk of the call), its
+    plain version and K1 at the same shape. Returns the kernels-line
+    numbers of the pipeline block."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    out = {}
+    for label, coeff, shape in (
+            ("pipeline block (8, 10, 1048576) encode", gf.parity_matrix(),
+             (ecb.DEFAULT_BATCH_WINDOWS, gf.DATA_SHARDS, MIB)),
+            ("recover rows=1 (1, 10, 1048576)",
+             gf.shard_rows([0], present_for([0])), (1, gf.DATA_SHARDS, MIB))):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen)
+        bitmat = device_bitmatrix(coeff, dev)
+        consts = device_consts(coeff, dev)
+        rows, k = coeff.shape
+        parts = list(gf256_mxu.chunks(shape[0], shape[2], k, rows))
+        mt = bitmat.t()
+        planes = [gf256_mxu.unpack(x, k, *p) for p in parts]
+        sums = [torch._int_mm(pl_, mt) for pl_ in planes]
+        y = torch.empty((shape[0], rows, shape[2]), dtype=torch.uint8,
+                        device=dev)
+
+        def unpack_all():
+            for p in parts:
+                gf256_mxu.unpack(x, k, *p)
+
+        def mm_all():
+            for pl_ in planes:
+                torch._int_mm(pl_, mt)
+
+        def pack_all():
+            for p, s_ in zip(parts, sums):
+                gf256_mxu.pack(s_, rows, *p, y)
+
+        ms = cuda_ms(lambda: gf2_bitmatrix_transform(bitmat, x), 20)
+        unpack_ms = cuda_ms(unpack_all, 20)
+        mm_ms = cuda_ms(mm_all, 20)
+        pack_ms = cuda_ms(pack_all, 20)
+        k1_ms = cuda_ms(lambda: gf256_transform(consts, x), 20)
+        plain_ms = cuda_ms(
+            lambda: gf2_bitmatrix_transform_reference(bitmat, x), 3)
+        b = bound(rows, k, shape[0], shape[2])
+        planes_b = shape[0] * shape[2] * 8 * k
+        sums_b = shape[0] * shape[2] * 32 * rows
+        moved = shape[0] * shape[2] * (k + rows) + 2 * (planes_b + sums_b)
+        print(f"  K4 {label}: {ms:.4f} ms in {len(parts)} chunk(s) "
+              f"(unpack {unpack_ms:.4f}, torch._int_mm {mm_ms:.4f}, pack "
+              f"{pack_ms:.4f}); K1 {k1_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bytes']} bytes; int8 ops {b['ops_ms']:.4f} ms), share "
+              f"{b['bound_ms'] / ms:.3f}; the unfused form moves {moved} "
+              f"bytes = {moved / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM peak "
+              f"[{card}]")
+        del planes, sums
+        if not out:
+            out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                   "bound_by": b["bound_by"], "unpack_ms": unpack_ms,
+                   "mm_ms": mm_ms, "pack_ms": pack_ms, "k1_ms": k1_ms}
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 6: the mesh path --------------------------------------------------
@@ -1284,12 +1462,12 @@ def dead_master() -> str:
         return f"127.0.0.1:{s.getsockname()[1]}"
 
 
-def server_args(backend: str) -> list[str]:
-    """The port CLI's `volume` command line for phase 8: port 0, the
-    -cache.mem and -ec.smallrecover defaults written out, and an unpaced
-    scrubber (-scrub.mbps 0: the default 8 MiB/s would take minutes over
-    a 1 GiB volume; phase 7's Scrubber runs unpaced too)."""
-    return ["volume", "-port", "0", "-dir", SERVER_DIR,
+def server_args(backend: str, directory: str = SERVER_DIR) -> list[str]:
+    """The port CLI's `volume` command line for phases 8 and 9: port 0,
+    the -cache.mem and -ec.smallrecover defaults written out, and an
+    unpaced scrubber (-scrub.mbps 0: the default 8 MiB/s would take
+    minutes over a 1 GiB volume; phase 7's Scrubber runs unpaced too)."""
+    return ["volume", "-port", "0", "-dir", directory,
             "-master", dead_master(), "-ecBackend", backend,
             "-cache.mem", "32", "-ec.smallrecover", str(MIB),
             "-scrub.mbps", "0", "-scrub.pausems", "0"]
@@ -1317,27 +1495,31 @@ def host_parity_matches(base: str, chunk: int = 4 * MIB) -> bool:
 
 
 def phase_server(dev: torch.device, seed: int, target: int, card: str = "",
-                 backend: str = "gpu") -> dict:
+                 backend: str = "gpu", keep_dir: str | None = None) -> dict:
     """The volume server as its users drive it, over HTTP: start it with
     the port CLI's start-up coroutine, write the needles of phase 7's
     generator up to `target` bytes, /admin/ec/generate, read every needle
     intact (A) and with shards {0,3,7,9} lost (B), /admin/ec/rebuild,
     /admin/ec/verify clean and after one flipped byte of .ec12, and a
-    forced /debug/scrub cycle that must localize it. Returns the launch
-    counts and what the geometry and the reports say they must be."""
+    forced /debug/scrub cycle that must localize it. With `keep_dir`, the
+    sealed .dat and .idx are hard-linked there before the server drops
+    them, for phase 9. Returns the launch counts and what the geometry
+    and the reports say they must be, and the parity files' sha256."""
     import asyncio
     import aiohttp
     print(f"  aiohttp {aiohttp.__version__}")
     shutil.rmtree(SERVER_DIR, ignore_errors=True)
     os.makedirs(SERVER_DIR)
     try:
-        return asyncio.run(_drive_server(dev, seed, target, card, backend))
+        return asyncio.run(_drive_server(dev, seed, target, card, backend,
+                                         keep_dir))
     finally:
         shutil.rmtree(SERVER_DIR, ignore_errors=True)
 
 
 async def _drive_server(dev: torch.device, seed: int, target: int,
-                        card: str, backend: str) -> dict:
+                        card: str, backend: str,
+                        keep_dir: str | None) -> dict:
     import aiohttp
     from seaweedfs_tpu_torch import cli
     from seaweedfs_tpu_torch.util import crc32c
@@ -1407,6 +1589,9 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
         timing["write"] = time.perf_counter() - t0
         await admin("/admin/volume/readonly", volume=str(vid))
         dat_size = os.path.getsize(base + ".dat")
+        if keep_dir is not None:
+            for ext in (".dat", ".idx"):
+                os.link(base + ext, os.path.join(keep_dir, str(vid) + ext))
         print(f"  write: {len(order)} needles, {written} needle bytes, "
               f".dat {dat_size} bytes in {timing['write']:.3f} s = "
               f"{written / timing['write'] / 1e6:.1f} MB/s through POST "
@@ -1422,6 +1607,8 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
         expected["generate"] = want
         check(host_parity_matches(base),
               "parity shard files differ from the host CpuEncoder's")
+        parity_sha = {sid: sha_file(base + pl.to_ext(sid))
+                      for sid in range(gf.DATA_SHARDS, gf.TOTAL_SHARDS)}
         print(f"  /admin/ec/generate: {timing['generate']:.3f} s, "
               f"{gen['windows']} windows in {gen['dispatches']} "
               f"dispatches; parity files equal the host CpuEncoder's {tag}")
@@ -1524,7 +1711,457 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
             rec.cancel()
     return {"launches": launches, "expected": expected, "timing": timing,
             "needles": len(order), "intervals": len(ivs),
-            "split": (host_n, card_n)}
+            "split": (host_n, card_n), "parity_sha": parity_sha}
+
+
+# -- phase 9: the volume server's MXU method over HTTP ------------------------
+
+# phase 9's store directory (git-ignored): phase 8's sealed volume,
+# hard-linked, and one more volume
+MXU_DIR = os.path.join(ROOT, ".smoke_mxu")
+MXU_EXTRA_VID = 2
+
+
+def phase_mxu_server(dev: torch.device, seed: int, target: int,
+                     extra: int, phase8: dict, card: str = "",
+                     backend: str = "gpu") -> dict:
+    """A fresh port volume server (cold caches) under
+    SWTPU_TORCH_EC_METHOD=mxu on phase 8's sealed volume (in MXU_DIR) and
+    one more volume of `extra` bytes written over HTTP:
+    /admin/ec/generate_batch of both (parity sha256-equal to phase 8's,
+    and to the host CpuEncoder's for the new one), every needle of phase
+    8's volume read with shards {0,3,7,9} deleted (pass B, as many K4
+    calls as phase 8's pass B launched K1), /admin/ec/rebuild, and a
+    forced scrub cycle that localizes one flipped byte of .ec12 through
+    K4. Returns the K4 calls, K4 launches (chunks) and K1 launches per
+    step and what the geometry and the reports say the calls and K1's
+    launches must be."""
+    import asyncio
+    prior = os.environ.get(pl.METHOD_ENV)
+    os.environ[pl.METHOD_ENV] = "mxu"
+    try:
+        return asyncio.run(_drive_mxu_server(dev, seed, target, extra,
+                                             phase8, card, backend))
+    finally:
+        if prior is None:
+            os.environ.pop(pl.METHOD_ENV, None)
+        else:
+            os.environ[pl.METHOD_ENV] = prior
+        shutil.rmtree(MXU_DIR, ignore_errors=True)
+
+
+async def _drive_mxu_server(dev: torch.device, seed: int, target: int,
+                            extra: int, phase8: dict, card: str,
+                            backend: str) -> dict:
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+
+    tag = f"[{card}]" if card else ""
+    launches, expected, timing = {}, {}, {}
+    vid, vid2 = SERVER_VID, MXU_EXTRA_VID
+    base = os.path.join(MXU_DIR, str(vid))
+    base2 = os.path.join(MXU_DIR, str(vid2))
+
+    async def counted(step: str, coro):
+        gf256_cuda.launches = 0
+        gf256_mxu.launches = 0
+        gf256_mxu.calls = 0
+        t0 = time.perf_counter()
+        out = await coro
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = {"K4 calls": gf256_mxu.calls,
+                          "K4 launches": gf256_mxu.launches,
+                          "K1": gf256_cuda.launches}
+        return out
+
+    vs, rec = await cli.start_volume(
+        cli.build_parser().parse_args(server_args(backend, MXU_DIR)))
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    url = f"http://{vs.url}"
+
+    async def admin(path: str, **params) -> dict:
+        async with http.post(url + path, params=params) as r:
+            body = await r.json()
+            check(r.status == 200, f"POST {path} {params}: {r.status} "
+                  f"{body}")
+            return body
+
+    try:
+        check(vid in vs.store.volumes, f"phase 8's volume {vid} not "
+              f"mounted from {MXU_DIR}")
+        # -- one more volume, written over HTTP
+        await admin("/admin/volume/allocate", volume=str(vid2))
+        written = 0
+        for nid, cookie, data, name, mime in store_needle_specs(seed + 9,
+                                                                extra):
+            form = aiohttp.FormData()
+            form.add_field("file", data, filename=name.decode(),
+                           content_type=mime.decode())
+            async with http.post(f"{url}/{vid2},{nid:x}{cookie:08x}",
+                                 data=form) as r:
+                check(r.status == 201, f"POST needle {nid} of volume "
+                      f"{vid2}: {r.status}")
+            written += len(data)
+        await admin("/admin/volume/readonly", volume=str(vid2))
+
+        # -- generate both in batched launches through K4
+        rows = sum(len(list(pl._iter_row_batches(
+            os.path.getsize(b + ".dat"), vs.store.ec_large_block,
+            vs.store.ec_small_block, 8 * MIB))) for b in (base, base2))
+        await counted("generate_batch", admin(
+            "/admin/ec/generate_batch", volumes=f"{vid},{vid2}"))
+        expected["generate_batch"] = {"K4 calls": math.ceil(rows / 8),
+                                      "K1": 0}
+        got_sha = {sid: sha_file(base + pl.to_ext(sid))
+                   for sid in range(gf.DATA_SHARDS, gf.TOTAL_SHARDS)}
+        check(got_sha == phase8["parity_sha"], "generate_batch parity of "
+              "phase 8's volume differs from /admin/ec/generate's (sha256)")
+        check(host_parity_matches(base2), f"generate_batch parity of volume "
+              f"{vid2} differs from the host CpuEncoder's")
+        print(f"  /admin/ec/generate_batch of volumes {vid} and {vid2} "
+              f"({written} more needle bytes): {timing['generate_batch']:.3f}"
+              f" s, {rows} buffer groups in {math.ceil(rows / 8)} K4 calls; "
+              f"parity of volume {vid} sha256-equal to phase 8's, of "
+              f"volume {vid2} equal to the host CpuEncoder's {tag}")
+
+        # -- mount, drop the normal volume, lose {0,3,7,9}, read degraded
+        mounted = await admin("/admin/ec/mount", volume=str(vid))
+        check(mounted["shards"] == list(range(gf.TOTAL_SHARDS)),
+              f"mounted shards {mounted}")
+        await admin("/admin/volume/delete", volume=str(vid))
+        sha_lost = {sid: sha_file(base + pl.to_ext(sid)) for sid in LOST}
+        lost = ",".join(map(str, LOST))
+        await admin("/admin/ec/unmount", volume=str(vid), shards=lost)
+        await admin("/admin/ec/delete_shards", volume=str(vid), shards=lost)
+        store = vs.store
+        ev = store.ec_volumes[vid]
+        specs, order = {}, []
+        for nid, cookie, data, name, mime in store_needle_specs(seed,
+                                                                target):
+            specs[nid] = (cookie, data)
+            order.append(nid)
+        ivs = lost_intervals(base, LOST, store.ec_large_block,
+                             store.ec_small_block, order)
+        check_cache_cold(store, specs, ivs, vid)
+        host_n, card_n = split_at(ivs, ev.small_recover_bytes)
+
+        async def read_all() -> list[float]:
+            lat = []
+            for nid in order:
+                cookie, data = specs[nid]
+                t0 = time.perf_counter()
+                async with http.get(f"{url}/{vid},{nid:x}{cookie:08x}") as r:
+                    body = await r.read()
+                    status = r.status
+                lat.append(time.perf_counter() - t0)
+                check(status == 200 and body == data,
+                      f"GET needle {nid}: status {status}, {len(body)} "
+                      f"bytes, expected {len(data)}")
+            return lat
+
+        lat_b = await counted("pass B", read_all())
+        expected["pass B"] = {"K4 calls": card_n, "K1": 0}
+        check(card_n == phase8["expected"]["pass B"],
+              f"pass B: {card_n} recovers on the card, phase 8 had "
+              f"{phase8['expected']['pass B']}")
+        print(f"  pass B: {len(order)} needles equal with shards {LOST} "
+              f"lost, {card_n} recovers through K4 and {host_n} on the host "
+              f"CpuEncoder in {timing['pass B']:.3f} s, p50 "
+              f"{percentile_ms(lat_b, 50):.4f} ms, p99 "
+              f"{percentile_ms(lat_b, 99):.4f} ms {tag}")
+
+        # -- rebuild (K1: rebuild_ec_files stays on the bitplane path)
+        reb = await counted("rebuild",
+                            admin("/admin/ec/rebuild", volume=str(vid)))
+        check(reb["rebuilt"] == LOST, f"rebuilt {reb}, lost {LOST}")
+        check({sid: sha_file(base + pl.to_ext(sid)) for sid in LOST}
+              == sha_lost, "rebuilt shard files differ from the deleted "
+              "ones (sha256)")
+        n_windows = -(-ev.shard_size // VERIFY_WINDOW)
+        expected["rebuild"] = {
+            "K4 calls": 0,
+            "K1": math.ceil(n_windows / ecb.DEFAULT_BATCH_WINDOWS)}
+        await admin("/admin/ec/mount", volume=str(vid))
+
+        # -- one flipped byte of .ec12, localized through K4
+        flip_w = n_windows // 3
+        flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_w * VERIFY_WINDOW + 777)
+        scrub = await counted("scrub", admin("/debug/scrub", run="1"))
+        cycle = scrub["cycle"]
+        found = [(w["volume"], w["offset"], w["shards"])
+                 for w in cycle["corrupt_windows"]]
+        check(found == [(vid, flip_w * VERIFY_WINDOW, [SCRUB_SHARD])]
+              and cycle["errors"] == [],
+              f"/debug/scrub cycle found {found} (errors "
+              f"{cycle['errors']}), expected window {flip_w} localized to "
+              f"shard {SCRUB_SHARD}")
+        # 14 hypotheses: a reconstruct through K4 and a re-verify on K1
+        expected["scrub"] = {"K4 calls": gf.TOTAL_SHARDS,
+                             "K1": cycle["dispatches"] + gf.TOTAL_SHARDS}
+        print(f"  rebuild {timing['rebuild']:.3f} s, sha256-equal; "
+              f"/debug/scrub?run=1: window {flip_w} localized to shard "
+              f"{SCRUB_SHARD} in {timing['scrub']:.3f} s {tag}")
+        print(f"  wall seconds per step: "
+              f"{ {k: round(v, 4) for k, v in timing.items()} } {tag}")
+        print(f"  MXU path launches per step: {launches} {tag}")
+    finally:
+        await http.close()
+        await vs.stop()
+        if rec is not None:
+            rec.cancel()
+    return {"launches": launches, "expected": expected, "timing": timing}
+
+
+def check_mxu_counts(seen: dict) -> tuple[int, int]:
+    """Each step's K4 calls and K1 launches equal its expected counts, and
+    each K4 call launched at least one chunk (no K4 launch without a
+    call); returns the K4 launches (chunks) and calls of the path."""
+    for step, want in seen["expected"].items():
+        got = seen["launches"][step]
+        check({key: got[key] for key in want} == want
+              and got["K4 launches"] >= got["K4 calls"]
+              and (got["K4 launches"] == 0) == (got["K4 calls"] == 0),
+              f"MXU path, {step}: counts {got}, expected {want}")
+    return (sum(v["K4 launches"] for v in seen["launches"].values()),
+            sum(v["K4 calls"] for v in seen["launches"].values()))
+
+
+# -- phase 10: -workers 2 on the card -----------------------------------------
+
+WORKERS_DIR = os.path.join(ROOT, ".smoke_workers")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cuda_device_files(pid: int) -> list[str]:
+    """The NVIDIA device files a process holds open, from /proc/<pid>/fd:
+    a process with a CUDA context holds /dev/nvidiactl, /dev/nvidia-uvm
+    and its card's /dev/nvidia<N>. (nvidia-smi's compute apps cannot
+    name the workers in a container whose pid namespace it does not see.)"""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def smi_apps() -> str:
+    """nvidia-smi's compute apps, as it lists them (for the log)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"unavailable: {e}"
+
+
+def holds_cuda_context(pid: int) -> bool:
+    files = cuda_device_files(pid)
+    return "/dev/nvidiactl" in files and "/dev/nvidia-uvm" in files and \
+        any(re.fullmatch(r"/dev/nvidia\d+", f) for f in files)
+
+
+def phase_workers(seed: int, target: int, card: str = "",
+                  backend: str = "gpu", deadline_s: float = 180.0) -> dict:
+    """`python -m seaweedfs_tpu_torch.cli volume -workers 2 -ecBackend
+    <backend>` as a subprocess on a free port: one volume of `target`
+    bytes in each worker's partition, written through the shared port;
+    /admin/ec/generate of both (dispatches = ceil(W/8), parity equal to
+    the host CpuEncoder's); shards {0,3,7,9} of worker 1's volume deleted
+    and every needle of it read through the shared port; on the card,
+    both worker pids in nvidia-smi's compute apps; worker 1 SIGKILLed,
+    and once the supervisor has respawned it, the same reads equal again
+    (and the new pid on the card). Stops every process it started."""
+    import asyncio
+    import signal
+    shutil.rmtree(WORKERS_DIR, ignore_errors=True)
+    os.makedirs(WORKERS_DIR)
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", pl.METHOD_ENV)}
+    log = open(os.path.join(WORKERS_DIR, "supervisor.log"), "w")
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "volume",
+         "-port", str(port), "-dir", WORKERS_DIR, "-master", dead_master(),
+         "-workers", "2", "-ecBackend", backend, "-timeline.interval", "0",
+         "-cache.mem", "32", "-ec.smallrecover", str(MIB)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    pids: set[int] = set()
+    try:
+        return asyncio.run(_drive_workers(seed, target, card, port,
+                                          deadline_s, pids,
+                                          backend == "gpu"))
+    except BaseException:
+        with open(os.path.join(WORKERS_DIR, "supervisor.log")) as f:
+            print("  supervisor log (tail):\n" + f.read()[-4000:])
+        raise
+    finally:
+        sup.send_signal(signal.SIGTERM)
+        try:
+            sup.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            sup.kill()
+            sup.wait(timeout=30)
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        shutil.rmtree(WORKERS_DIR, ignore_errors=True)
+
+
+async def _drive_workers(seed: int, target: int, card: str, port: int,
+                         deadline_s: float, pids: set[int],
+                         on_card: bool) -> dict:
+    import asyncio
+    import aiohttp
+    import signal
+    tag = f"[{card}]" if card else ""
+    shared = f"http://127.0.0.1:{port}"
+    timing = {}
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+
+    async def until(what: str, probe):
+        """probe() until it returns a true value, within deadline_s."""
+        end = time.monotonic() + deadline_s
+        last = None
+        while time.monotonic() < end:
+            try:
+                got = await probe()
+                if got:
+                    return got
+            except (aiohttp.ClientError, OSError, KeyError,
+                    ValueError) as e:
+                last = e
+            await asyncio.sleep(0.2)
+        raise RuntimeError(f"-workers 2: {what} not within {deadline_s} s "
+                           f"({last})")
+
+    async def rows():
+        async with http.get(f"{shared}/stats/workers") as r:
+            got = (await r.json())["workers"]
+        return got if len(got) == 2 and all(w["alive"] for w in got) \
+            else None
+
+    async def admin(path: str, **params) -> dict:
+        async with http.post(shared + path, params=params) as r:
+            body = await r.json()
+            check(r.status == 200, f"POST {path} {params}: {r.status} "
+                  f"{body}")
+            return body
+
+    async def allocate(vid: int):
+        # 503 while the entry worker has not yet found its sibling
+        async with http.post(f"{shared}/admin/volume/allocate",
+                             params={"volume": str(vid)}) as r:
+            return r.status == 200
+
+    try:
+        t0 = time.perf_counter()
+        workers = await until("both workers up", rows)
+        timing["start"] = time.perf_counter() - t0
+        pids.update(w["pid"] for w in workers)
+        by_index = {w["index"]: w["pid"] for w in workers}
+        # volume 1 is worker 1's (1 % 2), volume 2 worker 0's
+        specs = {}
+        t0 = time.perf_counter()
+        for vid in (1, 2):
+            await until(f"allocate volume {vid}", lambda vid=vid:
+                        allocate(vid))
+            specs[vid] = {}
+            for nid, cookie, data, name, mime in store_needle_specs(
+                    seed + 10 + vid, target):
+                form = aiohttp.FormData()
+                form.add_field("file", data, filename=name.decode(),
+                               content_type=mime.decode())
+                async with http.post(f"{shared}/{vid},{nid:x}{cookie:08x}",
+                                     data=form) as r:
+                    check(r.status == 201, f"POST needle {nid} of volume "
+                          f"{vid} through the shared port: {r.status}")
+                specs[vid][nid] = (cookie, data)
+            await admin("/admin/volume/readonly", volume=str(vid))
+        timing["write"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for vid in (1, 2):
+            gen = await admin("/admin/ec/generate", volume=str(vid))
+            want = math.ceil(gen["windows"] / ecb.DEFAULT_BATCH_WINDOWS)
+            check(gen["dispatches"] == want, f"volume {vid}: "
+                  f"{gen['dispatches']} dispatches for {gen['windows']} "
+                  f"windows, expected {want}")
+            check(host_parity_matches(os.path.join(WORKERS_DIR, str(vid))),
+                  f"volume {vid}: parity differs from the host CpuEncoder's")
+        timing["generate"] = time.perf_counter() - t0
+        await admin("/admin/ec/mount", volume="1")
+        await admin("/admin/volume/delete", volume="1")
+        lost = ",".join(map(str, LOST))
+        await admin("/admin/ec/unmount", volume="1", shards=lost)
+        await admin("/admin/ec/delete_shards", volume="1", shards=lost)
+
+        async def read_volume_1() -> bool:
+            for nid, (cookie, data) in specs[1].items():
+                async with http.get(f"{shared}/1,{nid:x}{cookie:08x}") as r:
+                    body = await r.read()
+                    check(r.status == 200 and body == data,
+                          f"GET needle {nid} of volume 1 through the shared "
+                          f"port: status {r.status}, {len(body)} bytes")
+            return True
+
+        t0 = time.perf_counter()
+        await read_volume_1()
+        timing["degraded GETs"] = time.perf_counter() - t0
+        contexts = {i: cuda_device_files(pid) for i, pid in by_index.items()}
+        if on_card:
+            check(all(holds_cuda_context(pid) for pid in by_index.values()),
+                  f"workers {by_index} do not each hold a CUDA context: "
+                  f"device files {contexts}")
+        print(f"  -workers 2 on port {port}: workers {by_index} up in "
+              f"{timing['start']:.3f} s; {sum(map(len, specs.values()))} "
+              f"needles written to volumes 1 and 2 through the shared port "
+              f"in {timing['write']:.3f} s; /admin/ec/generate of both "
+              f"{timing['generate']:.3f} s, parity equal to the host "
+              f"CpuEncoder's; {len(specs[1])} needles of volume 1 equal "
+              f"with shards {LOST} lost in {timing['degraded GETs']:.3f} s; "
+              f"device files held by each worker {contexts}; nvidia-smi "
+              f"compute apps {smi_apps()!r} {tag}")
+
+        # -- SIGKILL worker 1, wait for the respawn, read again
+        os.kill(by_index[1], signal.SIGKILL)
+        t0 = time.perf_counter()
+
+        async def respawned():
+            got = await rows()
+            new = [w for w in got or () if w["index"] == 1
+                   and w["pid"] != by_index[1]]
+            return new[0] if new else None
+
+        new = await until("worker 1 respawned", respawned)
+        pids.add(new["pid"])
+        await until("volume 1 served again", read_volume_1)
+        timing["respawn and GETs"] = time.perf_counter() - t0
+        after = cuda_device_files(new["pid"])
+        if on_card:
+            check(holds_cuda_context(new["pid"]), f"respawned worker 1 "
+                  f"(pid {new['pid']}) holds no CUDA context: device files "
+                  f"{after}")
+        print(f"  worker 1 (pid {by_index[1]}) SIGKILLed, respawned as pid "
+              f"{new['pid']}; volume 1's needles equal again "
+              f"{timing['respawn and GETs']:.3f} s after the kill; device "
+              f"files held by the new worker {after} {tag}")
+    finally:
+        await http.close()
+    return {"timing": timing, "pids": by_index, "respawned": new["pid"]}
 
 
 def parse_args(argv=None):
@@ -1542,6 +2179,10 @@ def parse_args(argv=None):
                    help="size the store phase fills its volume's .dat to")
     p.add_argument("--server-mib", type=int, default=1024,
                    help="size the server phase fills its volume's .dat to")
+    p.add_argument("--mxu-extra-mib", type=int, default=64,
+                   help="size of the second volume phase 9 writes")
+    p.add_argument("--workers-mib", type=int, default=256,
+                   help="size of each volume of phase 10's -workers 2")
     return p.parse_args(argv)
 
 
@@ -1575,10 +2216,17 @@ def main(argv=None) -> int:
               f"instance for {groups.group(1) if groups else fn} group(s) "
               f"of 4 rows: {sum(mix.values())} instructions, "
               f"{dict(mix.most_common(12))}")
+    for fn, mix in sass_mix("gf2_bitmatrix").items():
+        print(f"  gf2_bitmatrix SASS (cuobjdump -sass, static count), "
+              f"{'unpack' if 'unpack' in fn else 'pack'} kernel: "
+              f"{sum(mix.values())} instructions, "
+              f"{dict(mix.most_common(12))}")
 
     print("== phase 2: kernel vs plain version on the card")
     max_err = phase_kernel_vs_plain(dev, args.seed)
     stacked_err = phase_stacked_vs_plain(dev, args.seed)
+    mxu_err = phase_mxu_vs_plain(dev, args.seed)
+    torch.cuda.empty_cache()
 
     print("== phase 3: flagship steps at full width")
     gf256_cuda.launches = 0
@@ -1601,6 +2249,7 @@ def main(argv=None) -> int:
 
     print("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
+    t4 = time_mxu(dev, args.seed, card)
 
     print("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
     with pdist.init(device="cuda"):
@@ -1632,16 +2281,35 @@ def main(argv=None) -> int:
 
     print("== phase 8: the volume server over HTTP (EC generate, degraded "
           "GETs, rebuild, verify, scrub)")
-    server = phase_server(dev, args.seed, args.server_mib * MIB, card)
+    shutil.rmtree(MXU_DIR, ignore_errors=True)
+    os.makedirs(MXU_DIR)
+    server = phase_server(dev, args.seed, args.server_mib * MIB, card,
+                          keep_dir=MXU_DIR)
     server_launches = check_store_counts(server, "server path")
     print(f"  launches on the server path: {server_launches}, each step's "
           f"equal to its expected count {server['expected']}")
+
+    print("== phase 9: the volume server's MXU method over HTTP "
+          "(SWTPU_TORCH_EC_METHOD=mxu: generate_batch, degraded GETs, "
+          "scrub localization through K4)")
+    mxu = phase_mxu_server(dev, args.seed, args.server_mib * MIB,
+                           args.mxu_extra_mib * MIB, server, card)
+    mxu_launches, mxu_calls = check_mxu_counts(mxu)
+    mxu_k1 = sum(v["K1"] for v in mxu["launches"].values())
+    print(f"  on the MXU path: K4 {mxu_launches} launches (chunks) in "
+          f"{mxu_calls} calls, K1 {mxu_k1} launches, each step's equal to "
+          f"its expected count {mxu['expected']}")
+
+    print("== phase 10: volume -workers 2 -ecBackend gpu (two processes, "
+          "each with its own CUDA context, one shared port)")
+    phase_workers(args.seed, args.workers_mib * MIB, card)
 
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
-        "launches": main_launches + store_launches + server_launches,
+        "launches": main_launches + store_launches + server_launches
+        + mxu_k1,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1653,6 +2321,14 @@ def main(argv=None) -> int:
         "max_abs_err": max(stacked_err, mesh["max_abs_err"]),
         "ms": t6["ms"], "plain_ms": t6["plain_ms"],
         "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],
+        "library_ms": None, "held_against_plain": True}, {
+        "name": "gf2_bitmatrix_transform", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/ops/csrc/gf2_bitmatrix.cu",
+        "replaces": "seaweedfs_tpu/ops/gf256_mxu.py:62",
+        "launches": mxu_launches, "calls": mxu_calls,
+        "max_abs_err": mxu_err,
+        "ms": t4["ms"], "plain_ms": t4["plain_ms"],
+        "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
         "library_ms": None, "held_against_plain": True}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

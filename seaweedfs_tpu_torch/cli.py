@@ -1,39 +1,41 @@
-"""`weed`-style CLI of the PyTorch port: the `volume` subcommand.
+"""`weed`-style CLI of the PyTorch port: the volume server and the
+offline volume tools.
 
     python -m seaweedfs_tpu_torch.cli volume -port 8080 -dir ./data \\
-        -master 127.0.0.1:9333 [-ecBackend auto|gpu|cpu] ...
+        -master 127.0.0.1:9333 [-ecBackend auto|gpu|cpu] [-workers N] ...
+    python -m seaweedfs_tpu_torch.cli compact|fix|export -dir D -volumeId N
+    python -m seaweedfs_tpu_torch.cli backup -dir D -volumeId N -server H:P
 
-The port of seaweedfs_tpu/cli.py's `volume` subcommand (its flags,
-`_run_volume` and the daemon set-up of `main`). The other subcommands
-are not ported yet. Start-up is split out as `start_volume(args)`, a
-coroutine that returns the started server and its flight recorder, so a
-program can drive the same entry point in process (chip_smoke.py does).
+The port of seaweedfs_tpu/cli.py's `volume`, `backup`, `fix`, `export`
+and `compact` subcommands (their flags, the runners and the process
+set-up of `main`, with the `-workers N` supervisor). The other
+subcommands are not ported yet. Start-up of one volume server process is
+split out as `start_volume(args)`, a coroutine that returns the started
+server and its flight recorder, so a program can drive the same entry
+point in process (chip_smoke.py does).
 
 `-ecBackend` picks the EC engine through SWTPU_TORCH_EC_BACKEND (not the
 JAX package's SWTPU_EC_BACKEND): `gpu` is the CUDA kernel, `cpu` its
 plain PyTorch version on the host, and `auto` means `gpu`. Without a
 CUDA device `auto` and `gpu` fail at start-up; the server never serves
-EC on the CPU unless `-ecBackend cpu` asks for it.
-
-Not ported yet, and refused with a message naming what is missing:
-`-workers` above 1 (the supervisor mode), `-slo` (stats/slo.py),
-`-cpuprofile`/`-memprofile` (util/pprof.py) and `-profile.hz`
-(stats/profiler.py).
+EC on the CPU unless `-ecBackend cpu` asks for it. Under `-workers N`
+the supervisor re-executes this module once per worker; each worker
+checks the flag at start-up and launches its kernels in a CUDA context
+of its own.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import os
 import sys
+import time
 
 from .security import tls
 from .security.guard import parse_white_list
 from .util import tracing
-
-# the flags of seaweedfs_tpu/cli.py that need a module the port lacks
-_UNPORTED = "is not ported to seaweedfs_tpu_torch yet"
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -49,10 +51,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="also log to stderr (set false with -logdir for "
                         "file-only logging)")
     p.add_argument("-cpuprofile", default="",
-                   help=f"cProfile dump on exit: util/pprof.py {_UNPORTED}")
+                   help="write cProfile stats here on exit (under "
+                        "-workers N each worker writes <path>.w<index> "
+                        "so the dumps don't clobber each other)")
     p.add_argument("-memprofile", default="",
-                   help=f"tracemalloc dump on exit: util/pprof.py "
-                        f"{_UNPORTED}")
+                   help="write tracemalloc top allocations here on exit "
+                        "(suffixed .w<index> under -workers, like "
+                        "-cpuprofile)")
     p.add_argument("-trace.sample", dest="trace_sample", type=float,
                    default=1.0,
                    help="distributed-tracing sample rate for requests "
@@ -68,8 +73,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "/debug/traces ring buffer")
     p.add_argument("-profile.hz", dest="profile_hz", type=float,
                    default=0.0,
-                   help=f"continuous sampling profiler rate in Hz: "
-                        f"stats/profiler.py {_UNPORTED}")
+                   help="continuous sampling profiler rate in Hz "
+                        "(stats/profiler.py): folds every thread's "
+                        "stack into /debug/profile; 0 (default) disables "
+                        "the always-on sampler — /debug/profile?seconds=N "
+                        "still records on-demand windows")
     p.add_argument("-timeline.interval", dest="timeline_interval",
                    type=float, default=10.0,
                    help="metrics-timeline snapshot cadence in seconds "
@@ -80,7 +88,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="timeline windows kept per process (default "
                         "360 = 1h of 10s windows)")
     p.add_argument("-slo", action="append", default=[],
-                   help=f"latency objective: stats/slo.py {_UNPORTED}")
+                   help="declarative latency objective evaluated over "
+                        "the timeline with fast/slow burn-rate windows "
+                        "and served at /debug/health, e.g. "
+                        "'volume.read:p99<50ms@99.9' (repeatable)")
     p.add_argument("-qos.tenant", dest="qos_tenant", action="append",
                    default=[],
                    help="tenant QoS class 'key:weight:rps[:burst]' "
@@ -104,6 +115,19 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "consumer's base rate the arbiter always grants")
 
 
+def _add_workers(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-workers", type=int, default=1,
+                   help="process-per-core data plane: N worker "
+                        "processes share the port via SO_REUSEPORT, "
+                        "ownership partitioned vid %% N")
+    # internal: set by the supervisor when re-executing itself as a
+    # worker; never passed by operators
+    p.add_argument("-workerIndex", type=int, default=-1,
+                   help=argparse.SUPPRESS)
+    p.add_argument("-workerStateDir", default="",
+                   help=argparse.SUPPRESS)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="weed-torch",
                                  description=__doc__.split("\n")[0])
@@ -111,9 +135,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     v = sub.add_parser("volume", help="start a volume server")
     _add_common(v)
-    v.add_argument("-workers", type=int, default=1,
-                   help=f"process-per-core data plane: the supervisor "
-                        f"mode {_UNPORTED}, so only 1 is accepted")
+    _add_workers(v)
     v.add_argument("-port", type=int, default=8080)
     v.add_argument("-dir", default="./data", help="comma-separated dirs")
     v.add_argument("-max", default="8", help="comma-separated max volumes")
@@ -182,6 +204,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EC recover transforms smaller than this many "
                         "bytes run on the host CPU encoder instead of "
                         "the device")
+
+    bk = sub.add_parser("backup", help="incrementally back up one volume "
+                                       "from a volume server to a local dir")
+    bk.add_argument("-dir", default=".")
+    bk.add_argument("-volumeId", type=int, required=True)
+    bk.add_argument("-collection", default="")
+    bk.add_argument("-server", required=True,
+                    help="source volume server host:port")
+
+    fx = sub.add_parser("fix", help="rebuild .idx by scanning .dat")
+    fx.add_argument("-dir", default=".")
+    fx.add_argument("-volumeId", type=int, required=True)
+    fx.add_argument("-collection", default="")
+
+    ex = sub.add_parser("export", help="list/dump needles in a volume")
+    ex.add_argument("-dir", default=".")
+    ex.add_argument("-volumeId", type=int, required=True)
+    ex.add_argument("-collection", default="")
+    ex.add_argument("-o", dest="output", default="",
+                    help="write file contents to this .tar instead of "
+                         "printing the JSON listing")
+    ex.add_argument("-fileNameFormat", default="{name}",
+                    help="tar member naming: {name} {id} {mime}")
+    ex.add_argument("-newer", default="",
+                    help="only needles modified after this "
+                         "YYYY-MM-DDThh:mm:ss")
+    ex.add_argument("-pattern", default="",
+                    help="only file names matching this glob")
+    ex.add_argument("-limit", type=int, default=0,
+                    help="stop after this many entries (0 = all)")
+
+    co = sub.add_parser("compact", help="offline-compact one volume")
+    co.add_argument("-dir", default=".")
+    co.add_argument("-volumeId", type=int, required=True)
+    co.add_argument("-collection", default="")
     return ap
 
 
@@ -212,36 +269,24 @@ def _discover_security_toml() -> None:
             glog.info("mTLS enabled from %s", found[0])
 
 
-def _refuse_unported(args) -> None:
-    """Exit with a message for every flag whose module is not ported."""
-    if args.workers > 1:
-        raise SystemExit(f"-workers {args.workers}: the worker supervisor "
-                         f"{_UNPORTED}; run one process (-workers 1)")
-    if args.slo:
-        raise SystemExit(f"-slo: stats/slo.py {_UNPORTED}")
-    if args.cpuprofile or args.memprofile:
-        raise SystemExit(f"-cpuprofile/-memprofile: util/pprof.py "
-                         f"{_UNPORTED}")
-    if args.profile_hz:
-        raise SystemExit(f"-profile.hz: stats/profiler.py {_UNPORTED}")
-
-
 def init_daemon(args) -> None:
     """The process-wide set-up of seaweedfs_tpu/cli.py's main for a
-    daemon: logging, tracing, the timeline, QoS and mTLS discovery."""
-    _refuse_unported(args)
-    env_off = os.environ.get("SWTPU_OFFSET_BYTES")
-    if env_off:
-        from .storage import types as _types
-        _types.set_offset_size(int(env_off))
+    daemon: logging, tracing, the timeline and its SLO objectives, QoS,
+    the respawn event of a worker, the profilers, armed failpoints."""
     from .util import glog
     glog.init(verbosity=args.verbosity, log_dir=args.logdir or None,
               logtostderr=args.logtostderr)
     tracing.init(sample=args.trace_sample, slow_ms=args.trace_slowms,
                  ring=args.trace_ring)
-    from .stats import timeline
+    from .stats import slo, timeline
     timeline.init(interval_s=args.timeline_interval,
                   ring=args.timeline_ring)
+    try:
+        slo.init(args.slo)
+    except ValueError as e:
+        # refuse to start guarding nothing: a typo'd objective silently
+        # ignored would "pass" every soak
+        raise SystemExit(str(e))
     from . import qos
     try:
         if args.qos_tenant:
@@ -252,12 +297,46 @@ def init_daemon(args) -> None:
         raise SystemExit(str(e))
     if args.qos_mbps > 0:
         qos.init_arbiter(args.qos_mbps, floor=args.qos_floor)
+    if args.slo and not timeline.enabled():
+        # with the recorder off no window is ever snapped, slo.tick()
+        # never runs, and /debug/health would report ok forever
+        raise SystemExit(
+            "-slo needs the flight recorder: -timeline.interval 0 "
+            "disables the timeline the burn engine evaluates")
+    if args.slo:
+        # the ring must hold the slow burn horizon
+        needed = slo.windows_needed(minimum=0)
+        if needed > args.timeline_ring:
+            glog.info("-timeline.ring %d too small for the %ds SLO slow "
+                      "window at interval %gs; using %d",
+                      args.timeline_ring, int(slo.SLOW_WINDOW_S),
+                      args.timeline_interval, needed)
+            timeline.init(interval_s=args.timeline_interval, ring=needed)
+    if os.environ.get("WEED_WORKER_RESPAWNS"):
+        # set by the -workers supervisor on every respawn; the supervisor
+        # serves no HTTP, so the respawned worker journals the event
+        from .util import events
+        try:
+            n_respawns = int(os.environ["WEED_WORKER_RESPAWNS"])
+        except ValueError:
+            n_respawns = -1
+        events.record("worker_respawn",
+                      index=getattr(args, "workerIndex", -1),
+                      respawns=n_respawns)
+    if args.cpuprofile or args.memprofile:
+        from .util.pprof import setup_profiling
+        # -workers N: each worker suffixes the dump path with its index
+        setup_profiling(args.cpuprofile, args.memprofile,
+                        worker_index=getattr(args, "workerIndex", -1))
+    if args.profile_hz:
+        from .stats import profiler
+        profiler.init(args.profile_hz)
+        profiler.start()
     if os.environ.get("WEED_FAILPOINTS"):
         from .util import failpoints
         glog.warning("FAILPOINTS ARMED: %s",
                      ", ".join(f"{a['site']}={a['action']}"
                                for a in failpoints.list_armed()))
-    _discover_security_toml()
 
 
 def _check_ec_backend(backend: str) -> None:
@@ -273,14 +352,102 @@ def _check_ec_backend(backend: str) -> None:
         raise SystemExit(f"-ecBackend {backend}: {e}")
 
 
+async def _serve_until_interrupt(*servers) -> None:
+    """Run until SIGINT/SIGTERM/SIGHUP, then stop servers in order; the
+    normal return lets atexit fire, which dumps -cpuprofile/-memprofile
+    output (util/pprof.py)."""
+    from .util import glog
+    from .util.signals import wait_for_interrupt
+    num = await wait_for_interrupt()
+    glog.V(1).infof("signal %s: shutting down %d server(s)",
+                    num, len(servers))
+    for srv in servers:
+        try:
+            await srv.stop()
+        except Exception as e:  # noqa: BLE001 — best-effort drain
+            glog.warning("shutdown of %s: %s", type(srv).__name__, e)
+
+
+def _worker_state_dir(args) -> str:
+    if args.workerStateDir:
+        return args.workerStateDir
+    return os.path.join(args.dir.split(",")[0], ".workers")
+
+
+async def _run_worker_supervisor(args) -> None:
+    """Parent of `volume -workers N`: mint the launch token, spawn the
+    worker processes (this module's command line + -workerIndex i),
+    restart crashed ones. No socket and no CUDA context live here — see
+    server/workers.py."""
+    import secrets
+    from .server.workers import (Supervisor, WORKER_TOKEN_ENV,
+                                 fresh_state_dir)
+    if args.port == 0:
+        raise SystemExit("volume -workers needs an explicit -port "
+                         "(the workers share it via SO_REUSEPORT)")
+    state_dir = await tracing.run_in_executor(
+        fresh_state_dir, _worker_state_dir(args))
+    env = dict(os.environ)
+    env[WORKER_TOKEN_ENV] = env.get(WORKER_TOKEN_ENV) \
+        or secrets.token_hex(16)
+    env[WORKER_PARENT_ENV] = str(os.getpid())
+    raw = list(getattr(args, "_raw_argv", None) or sys.argv[1:])
+
+    def build_argv(index: int) -> list[str]:
+        return ([sys.executable, "-m", "seaweedfs_tpu_torch.cli"] + raw
+                + ["-workerIndex", str(index),
+                   "-workerStateDir", state_dir])
+
+    sup = Supervisor(build_argv, args.workers, env=env)
+    await sup.start()
+    print(f"volume supervisor: {args.workers} workers sharing port "
+          f"{args.port} (state: {state_dir})", flush=True)
+    from .util.signals import wait_for_interrupt
+    await wait_for_interrupt()
+    await sup.stop()
+
+
+_BACKGROUND_TASKS: set = set()  # strong refs: loop tasks are weakly held
+
+# the supervisor's pid, which it hands its workers: a worker orphaned
+# while it was still starting (before it could read its parent) exits too
+WORKER_PARENT_ENV = "SWTPU_WORKER_PARENT"
+
+
+def _watch_parent() -> None:
+    """Workers exit when the supervisor disappears (reparented to
+    init), so a SIGKILLed supervisor never leaks port-holding
+    orphans."""
+    ppid = int(os.environ.get(WORKER_PARENT_ENV) or os.getppid())
+
+    async def watch() -> None:
+        while os.getppid() == ppid:
+            await asyncio.sleep(1.0)
+        os._exit(0)
+
+    task = asyncio.get_running_loop().create_task(watch())
+    _BACKGROUND_TASKS.add(task)
+    task.add_done_callback(_BACKGROUND_TASKS.discard)
+
+
+def _make_worker_ctx(args):
+    from .server.workers import WorkerContext
+    return WorkerContext(args.workerIndex, args.workers, args.port,
+                         _worker_state_dir(args))
+
+
 async def start_volume(args):
-    """Start a volume server from parsed `volume` arguments; returns
+    """Start one volume server process from parsed `volume` arguments
+    (a worker of the supervisor when -workerIndex is set); returns
     (server, recorder handle or None). The caller stops the server and
     cancels the recorder."""
     from .server.volume_server import VolumeServer
     from .storage.store import Store
-    _refuse_unported(args)
     _check_ec_backend(args.ecBackend)
+    worker_ctx = None
+    if args.workerIndex >= 0:
+        _watch_parent()
+        worker_ctx = _make_worker_ctx(args)
     dirs = args.dir.split(",")
     maxes = [int(x) for x in args.max.split(",")]
     if len(maxes) == 1:
@@ -299,6 +466,8 @@ async def start_volume(args):
         dirs, max_volume_counts=maxes,
         compaction_bytes_per_second=args.compactionMBps * 1024 * 1024,
         index_type=args.index,
+        partition=(None if worker_ctx is None else
+                   (worker_ctx.index, worker_ctx.total)),
         needle_cache_bytes=args.cache_mem * 1024 * 1024,
         group_commit_window=args.groupcommit_ms / 1000.0,
         fsync=args.fsync,
@@ -308,6 +477,7 @@ async def start_volume(args):
                       pulse_seconds=args.pulseSeconds, jwt_key=args.jwtKey,
                       white_list=parse_white_list(args.whiteList),
                       public_url=args.publicUrl,
+                      worker_ctx=worker_ctx,
                       batch_max=args.batch_max,
                       scrub_mbps=args.scrub_mbps,
                       scrub_interval=args.scrub_interval,
@@ -320,25 +490,262 @@ async def start_volume(args):
 
 
 async def _run_volume(args) -> None:
+    if args.workers > 1 and args.workerIndex < 0:
+        await _run_worker_supervisor(args)
+        return
     vs, rec = await start_volume(args)
-    print(f"volume server listening on {vs.url}, dirs={args.dir.split(',')}",
-          flush=True)
-    from .util import glog
-    from .util.signals import wait_for_interrupt
+    dirs = args.dir.split(",")
+    ctx = vs.worker_ctx
+    if ctx is not None:
+        print(f"volume worker {ctx.index}/{ctx.total}: public "
+              f"{args.ip}:{ctx.public_port}, private {vs.url}, "
+              f"dirs={dirs}", flush=True)
+    else:
+        print(f"volume server listening on {vs.url}, dirs={dirs}",
+              flush=True)
     try:
-        num = await wait_for_interrupt()
-        glog.V(1).infof("signal %s: shutting down the volume server", num)
-        await vs.stop()
+        await _serve_until_interrupt(vs)
     finally:
         if rec is not None:
             rec.cancel()
 
 
+async def _run_backup(args) -> None:
+    """Incremental volume backup (command/backup.go): pull the tail of a
+    remote volume newer than the local copy; falls back to a full fetch
+    when compaction revisions diverge or local is ahead."""
+    import aiohttp
+
+    from .storage import volume_backup as vb
+    from .storage.volume import Volume
+
+    async with tls.make_session(
+            timeout=aiohttp.ClientTimeout(total=300)) as http:
+        async with http.get(
+                tls.url(args.server, "/admin/volume/status"),
+                params={"volume": str(args.volumeId)}) as resp:
+            if resp.status != 200:
+                print(f"volume {args.volumeId} not found on {args.server}")
+                sys.exit(1)
+            st = await resp.json()
+        from .storage import types as t
+        from .storage.super_block import ReplicaPlacement
+        collection = args.collection or st.get("collection", "")
+        # Volume's ctor replays .idx/.dat metadata from disk
+        v = await tracing.run_in_executor(lambda: Volume(
+            args.dir, collection, args.volumeId,
+            replica_placement=ReplicaPlacement.parse(
+                st.get("replication", "000")),
+            ttl=t.TTL.parse(st.get("ttl", ""))))
+        need_full = (
+            v.super_block.compaction_revision
+            != st["compaction_revision"]
+            or v.last_append_at_ns > st["last_append_at_ns"])
+        if need_full:
+            base = v.file_name()
+            v.close()
+            # .idx before .dat: a racing write then at most leaves extra
+            # .dat tail past the last copied idx entry, which the
+            # open-time integrity check truncates. Download to .tmp and
+            # swap both only on success.
+            tmps: list[tuple[str, str]] = []
+            try:
+                for ext in (".idx", ".dat"):
+                    tmp = base + ext + ".tmp"
+                    async with http.get(
+                            tls.url(args.server, "/admin/file"),
+                            params={"volume": str(args.volumeId),
+                                    "collection": collection,
+                                    "ext": ext}) as resp:
+                        if resp.status != 200:
+                            raise RuntimeError(
+                                f"fetch {ext}: http {resp.status}")
+                        f = await tracing.run_in_executor(
+                            open, tmp, "wb")
+                        try:
+                            async for chunk in \
+                                    resp.content.iter_chunked(1 << 20):
+                                await tracing.run_in_executor(
+                                    f.write, chunk)
+                        finally:
+                            await tracing.run_in_executor(f.close)
+                    tmps.append((tmp, base + ext))
+            except (RuntimeError, aiohttp.ClientError, OSError) as e:
+                for tmp, _ in tmps:
+                    if os.path.exists(tmp):
+                        await tracing.run_in_executor(os.remove, tmp)
+                print(f"full copy failed: {e}")
+                sys.exit(1)
+            # swap .dat before .idx: a crash in between leaves old .idx +
+            # new (superset) .dat, which the open-time check truncates
+            for tmp, final in reversed(tmps):
+                await tracing.run_in_executor(os.replace, tmp, final)
+            v = await tracing.run_in_executor(lambda: Volume(
+                args.dir, collection, args.volumeId,
+                create_if_missing=False))
+            size = await tracing.run_in_executor(v.data_size)
+            print(f"full copy of volume {args.volumeId}: "
+                  f"{size} bytes")
+        else:
+            since = v.last_append_at_ns
+            applied = 0
+            dec = vb.FrameDecoder()
+            async with http.get(
+                    tls.url(args.server, "/admin/volume/tail"),
+                    params={"volume": str(args.volumeId),
+                            "since_ns": str(since)}) as resp:
+                if resp.status != 200:
+                    print(f"tail from {args.server}: http {resp.status}")
+                    sys.exit(1)
+
+                def _apply_batch(records):
+                    for n, is_delete in records:
+                        vb.apply_needle(v, n, is_delete)
+
+                async for chunk in resp.content.iter_chunked(1 << 20):
+                    batch = list(dec.feed(chunk))
+                    if batch:
+                        # one executor hop per decoded chunk, not per
+                        # record
+                        await tracing.run_in_executor(_apply_batch, batch)
+                        applied += len(batch)
+            print(f"applied {applied} records to volume {args.volumeId} "
+                  f"(since_ns={since})")
+        v.close()
+
+
+def _run_fix(args) -> None:
+    """Rebuild .idx by scanning .dat (command/fix.go)."""
+    from .storage import types as t
+    from .storage.needle_map import pack_entry
+    from .storage.volume import Volume
+    v = Volume(args.dir, args.collection, args.volumeId,
+               create_if_missing=False)
+    entries: dict[int, tuple[int, int]] = {}
+
+    def visit(n, offset):
+        if n.size > 0 or n.data:
+            entries[n.id] = (offset, n.size)
+        else:
+            entries[n.id] = (0, t.TOMBSTONE_FILE_SIZE)
+    v.scan(visit)
+    idx_path = v.file_name() + ".idx"
+    with open(idx_path, "wb") as f:
+        for key, (off, size) in entries.items():
+            f.write(pack_entry(key, off, size))
+    print(f"rebuilt {idx_path} with {len(entries)} entries")
+    v.close()
+
+
+def _run_export(args) -> None:
+    """List needles as JSON lines, or -o out.tar to dump contents
+    (command/export.go: -o tar, -fileNameFormat, -newer)."""
+    import fnmatch
+    import io
+    import tarfile
+
+    from .storage import types as t
+    from .storage.volume import Volume
+    v = Volume(args.dir, args.collection, args.volumeId,
+               create_if_missing=False)
+    newer_ts = 0.0
+    if args.newer:
+        newer_ts = time.mktime(
+            time.strptime(args.newer, "%Y-%m-%dT%H:%M:%S"))
+    tar = tarfile.open(args.output, "w") if args.output else None
+    exported = 0
+
+    class _LimitReached(Exception):
+        pass
+
+    def want(n) -> bool:
+        name = n.name.decode(errors="replace")
+        if args.pattern and not fnmatch.fnmatch(name, args.pattern):
+            return False
+        if newer_ts and getattr(n, "last_modified", 0) < newer_ts:
+            return False
+        return True
+
+    def _is_live(n, offset) -> bool:
+        # a scanned record is live only if the needle map still points at
+        # THIS offset (overwritten/deleted data must not be resurrected)
+        nv = v.nm.get(n.id)
+        return (nv is not None and nv.offset == offset
+                and nv.size != t.TOMBSTONE_FILE_SIZE)
+
+    def visit(n, offset):
+        nonlocal exported
+        if args.limit > 0 and exported >= args.limit:
+            raise _LimitReached
+        kind = "tombstone" if n.size == 0 and not n.data else "needle"
+        if tar is None:
+            # listing mode keeps every historical record (incl.
+            # tombstones): it is the audit view of the raw .dat
+            if kind == "needle" and not want(n):
+                return
+            print(json.dumps({
+                "key": n.id, "cookie": n.cookie, "size": n.size,
+                "offset": offset, "name": n.name.decode(errors="replace"),
+                "mime": n.mime.decode(errors="replace"), "type": kind,
+                "live": kind == "needle" and _is_live(n, offset)}))
+            exported += 1
+            return
+        if kind == "tombstone" or not want(n) or not _is_live(n, offset):
+            return
+        exported += 1
+        member = args.fileNameFormat.format(
+            name=n.name.decode(errors="replace") or f"{n.id:x}",
+            id=f"{n.id:x}", mime=n.mime.decode(errors="replace"))
+        info = tarfile.TarInfo(member)
+        info.size = len(n.data)
+        info.mtime = int(getattr(n, "last_modified", 0) or 0)
+        tar.addfile(info, io.BytesIO(bytes(n.data)))
+
+    try:
+        v.scan(visit)
+    except _LimitReached:
+        pass
+    v.close()
+    if tar is not None:
+        tar.close()
+        print(f"exported {exported} files to {args.output}")
+
+
+def _run_compact(args) -> None:
+    from .storage import vacuum
+    from .storage.volume import Volume
+    v = Volume(args.dir, args.collection, args.volumeId,
+               create_if_missing=False)
+    before = v.data_size()
+    vacuum.compact(v)
+    vacuum.commit_compact(v)
+    print(f"compacted volume {args.volumeId}: {before} -> {v.data_size()} "
+          f"bytes")
+    v.close()
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    init_daemon(args)
+    # the worker supervisor re-executes this same command line with
+    # -workerIndex appended; remember it when given programmatically
+    args._raw_argv = list(argv) if argv is not None else None
+    # SWTPU_OFFSET_BYTES=5: the 5-byte offset build tag as a runtime
+    # switch, set before any volume or index file is opened
+    env_off = os.environ.get("SWTPU_OFFSET_BYTES")
+    if env_off:
+        from .storage import types as _types
+        _types.set_offset_size(int(env_off))
+    if args.cmd == "volume":
+        init_daemon(args)
+    _discover_security_toml()
+    offline = {"fix": _run_fix, "export": _run_export,
+               "compact": _run_compact}
+    if args.cmd in offline:
+        offline[args.cmd](args)
+        return
+    runners = {"volume": _run_volume, "backup": _run_backup}
     try:
-        asyncio.run(_run_volume(args))
+        asyncio.run(runners[args.cmd](args))
     except KeyboardInterrupt:
         pass
     except BrokenPipeError:

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import gf256_mxu
 from ..ops.gf256_cuda import gf256_transform
 from . import gf
 
@@ -98,19 +99,26 @@ class TorchEncoder:
 
     # -- batched API (stripe-batch engine, ec/batch.py) -------------------
 
-    def transform_batch(self, coeff: np.ndarray, block) -> torch.Tensor:
+    def transform_batch(self, coeff: np.ndarray, block,
+                        mxu: bool = False) -> torch.Tensor:
         """Apply a (rows, k) coefficient matrix to a (B, k, L) window
         block as ONE kernel launch -> (B, rows, L) on the device.
 
-        On CUDA the launch is asynchronous; `transform_async` is the
-        form that hands a host block in and reads the result back."""
+        With `mxu` the transform runs as a GF(2) bit-matrix product
+        (ops/gf256_mxu.py, K4's port) instead of the nibble-table kernel
+        (K1). On CUDA the launch is asynchronous; `transform_async` is
+        the form that hands a host block in and reads the result back."""
         block = self._tensor(block)
         if block.dim() != 3:
             raise ValueError(f"block must be (B, k, L), got "
                              f"{tuple(block.shape)}")
+        if mxu:
+            return gf256_mxu.gf2_bitmatrix_transform(
+                gf256_mxu.device_bitmatrix(coeff, self.device), block)
         return gf256_transform(device_consts(coeff, self.device), block)
 
-    def transform_async(self, coeff: np.ndarray, block: np.ndarray):
+    def transform_async(self, coeff: np.ndarray, block: np.ndarray,
+                        mxu: bool = False):
         """Launch the transform of a host (B, k, L) block; returns a thunk
         yielding the (B, rows, L) numpy result.
 
@@ -118,15 +126,15 @@ class TorchEncoder:
         in and out with non_blocking copies on the current stream, and an
         event is recorded after the copy out. The thunk waits on that
         event only, so it may run on another thread while this one
-        launches the next block."""
+        launches the next block. `mxu` is transform_batch's."""
         block = np.ascontiguousarray(block, dtype=np.uint8)
         if self.device.type != "cuda":
-            out = self.transform_batch(coeff, block)
+            out = self.transform_batch(coeff, block, mxu)
             return lambda: out.numpy()
         stream = torch.cuda.current_stream(self.device)
         staged = torch.from_numpy(block).pin_memory()
         out = self.transform_batch(
-            coeff, staged.to(self.device, non_blocking=True))
+            coeff, staged.to(self.device, non_blocking=True), mxu)
         host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()

@@ -46,6 +46,14 @@ _PIPE_DEPTH = 2
 # JAX package's SWTPU_EC_BACKEND so both packages run in one process
 BACKEND_ENV = "SWTPU_TORCH_EC_BACKEND"
 
+# environment variable whose value "mxu" sends _transform_buffers_async
+# through the GF(2) bit-matrix product (K4's port) instead of the
+# nibble-table kernel; the port's name for the JAX package's
+# SWTPU_EC_METHOD, kept apart for the same reason. It mirrors that option
+# only: on the H100 the method gives the same bytes and is slower at every
+# shape measured (PERF.md section 6), so leave it unset
+METHOD_ENV = "SWTPU_TORCH_EC_METHOD"
+
 
 def to_ext(shard_id: int) -> str:
     return ".ec%02d" % shard_id
@@ -72,8 +80,9 @@ def _transform_buffers_async(encoder, coeff: np.ndarray,
     return a thunk that yields the output byte buffers when called.
 
     A TorchEncoder takes the buffers as one (1, k, n) block through its
-    pinned-buffer launch; on CUDA the thunk waits on the stream event
-    recorded after the copy back. The host CpuEncoder, which EcVolume
+    pinned-buffer launch, as a GF(2) bit-matrix product when
+    SWTPU_TORCH_EC_METHOD is "mxu"; on CUDA the thunk waits on the stream
+    event recorded after the copy back. The host CpuEncoder, which EcVolume
     picks for recovers under its small_recover_bytes, computes eagerly
     and the thunk is a no-op. Any other encoder raises TypeError."""
     if isinstance(encoder, CpuEncoder):
@@ -84,7 +93,8 @@ def _transform_buffers_async(encoder, coeff: np.ndarray,
         raise TypeError(f"the port's pipeline runs a TorchEncoder or a "
                         f"CpuEncoder, got {type(encoder).__name__}")
     block = np.stack([np.asarray(b, np.uint8) for b in buffers])[None]
-    thunk = encoder.transform_async(coeff, block)
+    thunk = encoder.transform_async(
+        coeff, block, mxu=os.environ.get(METHOD_ENV) == "mxu")
     return lambda: list(thunk()[0])
 
 

@@ -34,7 +34,10 @@ frame channel (the frame twin of the aiohttp worker-routing
 middleware), so an external pipelining client never pays an HTTP
 downgrade just because SO_REUSEPORT handed it the wrong worker.
 
-A copy of seaweedfs_tpu/server/frameserver.py in the PyTorch port.
+A copy of seaweedfs_tpu/server/frameserver.py in the PyTorch port, with
+one fix: a multipart write that a sibling worker forwards over its frame
+hop falls back to the HTTP hop, where it is parsed (the reference's copy
+stores the raw multipart body as the needle).
 """
 
 from __future__ import annotations
@@ -331,6 +334,12 @@ class FrameServerProtocol(asyncio.Protocol):
     async def _serve_write(self, fid_s: str, query: dict, headers: dict,
                            body: bytes):
         vs = self.vs
+        if headers.get("content-type", "").startswith("multipart/"):
+            # multipart framing is parsed by the aiohttp handler only,
+            # also for a sibling hop (a worker forwarding a client's
+            # multipart upload): FLAG_FALLBACK sends it over HTTP, where
+            # it is parsed, instead of storing the raw multipart body
+            return None
         wr = self._wire_request("POST", fid_s, query, headers, body)
         if not self.hop:
             # mirror the raw listener's fast-write gate

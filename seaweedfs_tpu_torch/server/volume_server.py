@@ -10,13 +10,14 @@ topology/store_replicate.go (replica fan-out).
 The port of seaweedfs_tpu/server/volume_server.py, a copy with three
 changes: the EC handlers run the port's EC engine, which
 SWTPU_TORCH_EC_BACKEND picks (the CLI's -ecBackend: gpu, the CUDA
-kernel, or cpu, its plain PyTorch version); start() resolves the port's
-native host library off the event loop; and a handler whose module is
-not ported yet (stats/slo, stats/profiler, util/pprof, query/,
-storage/vacuum, volume_backup, volume_tier) answers 500 with the
-ImportError that names the seaweedfs_tpu_torch module (_unported_mw).
-The -workers mode (server/workers.py) is copied but not reachable from
-the port's CLI yet.
+kernel, or cpu, its plain PyTorch version; SWTPU_TORCH_EC_METHOD=mxu
+sends its batched and recover transforms through the GF(2) bit-matrix
+product); start() resolves the port's native host library off the event
+loop; and a handler that reaches a module not ported yet answers 500
+with the ImportError that names the seaweedfs_tpu_torch module
+(_unported_mw). Every handler of the reference is ported; what the
+middleware still guards is util/client.py's filer route cache, which
+needs filer/shard.py.
 """
 
 from __future__ import annotations
@@ -319,11 +320,11 @@ class VolumeServer:
 
     @web.middleware
     async def _unported_mw(self, req: web.Request, handler):
-        """A handler whose module is not in the port yet (stats/slo,
-        stats/profiler, util/pprof, query/, storage/vacuum,
-        volume_backup, volume_tier) fails its lazy import with an
-        ImportError that names the seaweedfs_tpu_torch module; answer
-        500 with that message instead of aiohttp's bare 500."""
+        """A handler that reaches a module not in the port yet (the
+        filer route cache of util/client.py needs filer/shard.py) fails
+        its lazy import with an ImportError that names the
+        seaweedfs_tpu_torch module; answer 500 with that message instead
+        of aiohttp's bare 500."""
         try:
             return await handler(req)
         except ImportError as e:

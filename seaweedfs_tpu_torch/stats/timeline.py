@@ -458,11 +458,6 @@ async def _run() -> None:
             glog.warning("timeline snapshot failed: %s", e)
         try:
             from . import slo
-        except ImportError:
-            # stats/slo.py is not ported yet, so no objective can be
-            # armed (the port's CLI refuses -slo): nothing to tick
-            continue
-        try:
             slo.tick()
         except Exception as e:  # noqa: BLE001 — SLO evaluation must not
             # kill the recorder; the engine logs its own transitions

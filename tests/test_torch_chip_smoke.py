@@ -353,3 +353,100 @@ def test_cache_cold_check_sees_needle_and_recover_entries(monkeypatch,
         chip_smoke.check_cache_cold(store, specs, ivs)
     finally:
         store.close()
+
+
+def test_mxu_phase2_cases_rehearse_on_the_cpu(monkeypatch):
+    """Phase 2's K4 cases at a small window on the CPU: every case equals
+    K1's plain version, and they cover the shapes that stress the bit-
+    matrix product: rows=1, rows=k=16, k=1, an L under 17 bytes, a
+    ragged L, and calls of several chunks, of whole windows and of column
+    ranges of one window."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    assert chip_smoke.phase_mxu_vs_plain(cpu, 0, 4096) == 0
+    cases = chip_smoke.mxu_cases(cpu, 0, 4096)
+    shapes = {np.asarray(c).shape for _, c, _, _ in cases}
+    assert {(4, 10), (1, 10), (16, 16), (4, 1)} <= shapes
+    assert min(x.shape[2] for _, _, x, _ in cases) < 17
+    plans = [list(chip_smoke.gf256_mxu.chunks(x.shape[0], x.shape[2],
+                                              x.shape[1], len(c), cb))
+             for _, c, x, cb in cases]
+    # chunks of whole windows, and column ranges of one window
+    assert any(len(p) > 1 and p[0][1] > 1 for p in plans)
+    assert any(len(p) > 1 and p[1][:2] == (0, 1) and p[1][2] > 0
+               for p in plans)
+
+
+def test_mxu_server_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phases 8 and 9 on volumes of a few MiB on the CPU: phase 8 keeps
+    its sealed volume; phase 9's fresh server under
+    SWTPU_TORCH_EC_METHOD=mxu writes parity sha256-equal to phase 8's
+    through generate_batch, reads every needle with 4 shards lost, and
+    localizes a flipped byte of .ec12. The expected counts follow from
+    the geometry; no launch counts on the CPU, so the check fails until
+    they are met. The method's variable is restored and the scratch
+    directory removed."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    monkeypatch.delenv("SWTPU_TORCH_EC_METHOD", raising=False)
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE",
+                        (chip_smoke.MIB, 3 * chip_smoke.MIB))
+    shutil.rmtree(chip_smoke.MXU_DIR, ignore_errors=True)
+    os.makedirs(chip_smoke.MXU_DIR)
+    phase8 = chip_smoke.phase_server(torch.device("cpu"), 3,
+                                     5 * chip_smoke.MIB, backend="cpu",
+                                     keep_dir=chip_smoke.MXU_DIR)
+    seen = chip_smoke.phase_mxu_server(torch.device("cpu"), 3,
+                                       5 * chip_smoke.MIB,
+                                       2 * chip_smoke.MIB, phase8,
+                                       backend="cpu")
+    assert "SWTPU_TORCH_EC_METHOD" not in os.environ
+    assert not os.path.exists(chip_smoke.MXU_DIR)
+    exp = seen["expected"]
+    assert exp["generate_batch"]["K4 calls"] >= 1 and \
+        exp["generate_batch"]["K1"] == 0
+    assert exp["pass B"] == {"K4 calls": phase8["expected"]["pass B"],
+                             "K1": 0}
+    assert exp["rebuild"] == {"K4 calls": 0,
+                              "K1": phase8["expected"]["rebuild"]}
+    assert exp["scrub"]["K4 calls"] == 14 and exp["scrub"]["K1"] >= 1 + 14
+    with pytest.raises(RuntimeError, match="MXU path, generate_batch"):
+        chip_smoke.check_mxu_counts(seen)
+    # calls without a chunk launched fail too; two chunks a call pass
+    seen["launches"] = {k: {**v, "K4 launches": 0} for k, v in exp.items()}
+    with pytest.raises(RuntimeError, match="MXU path, generate_batch"):
+        chip_smoke.check_mxu_counts(seen)
+    seen["launches"] = {k: {**v, "K4 launches": 2 * v["K4 calls"]}
+                        for k, v in exp.items()}
+    calls = sum(v["K4 calls"] for v in exp.values())
+    assert chip_smoke.check_mxu_counts(seen) == (2 * calls, calls)
+
+
+def test_workers_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 10 with -ecBackend cpu and volumes of a few MiB: both
+    workers serve the shared port, generate and degraded reads are
+    right, worker 1 is respawned after a SIGKILL and serves again, and
+    no process of the fleet is left."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE",
+                        (chip_smoke.MIB, 2 * chip_smoke.MIB))
+    seen = chip_smoke.phase_workers(3, 3 * chip_smoke.MIB, backend="cpu",
+                                    deadline_s=120)
+    assert seen["respawned"] != seen["pids"][1]
+    assert not os.path.exists(chip_smoke.WORKERS_DIR)
+    for pid in (*seen["pids"].values(), seen["respawned"]):
+        for _ in range(50):
+            try:
+                os.kill(pid, 0)
+            except OSError:
+                break
+            import time
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"worker pid {pid} still running")

@@ -4,14 +4,13 @@ EcVolume: the cases of tests/test_chunk_cache.py pointed at the port.
 
 The cases there that drive util/client.py's WeedClient or the filer's
 stream_chunk_views wait for those modules' port (ROADMAP M10). The
-vacuum case is split in two: the volume-wide cache drop it relies on,
-and commit_compaction's ImportError until storage/vacuum.py is ported.
+vacuum case runs on the port's storage/vacuum.py, beside a case of the
+volume-wide cache drop it relies on.
 """
 
 import asyncio
 import os
 import random
-import sys
 
 import pytest
 
@@ -203,13 +202,27 @@ def test_needle_cache_misses_after_volume_drop(cached_store):
 
 
 def test_commit_compaction_needs_the_vacuum_port(cached_store):
-    """storage/vacuum.py is not ported yet: commit_compaction raises
-    ImportError naming it, and never reaches the JAX package's."""
+    """The vacuum case of tests/test_chunk_cache.py, now that
+    storage/vacuum.py is ported: Store.commit_compaction swaps in the
+    port's compacted volume, every cached entry of it is gone (the swap
+    moved every offset), and the next read is a counted miss that
+    returns the survivor's bytes."""
+    from seaweedfs_tpu_torch.storage import vacuum
     s = cached_store
-    s.write_needle(1, _needle(1, b"x"))
-    with pytest.raises(ImportError, match="vacuum"):
-        s.commit_compaction(1)
-    assert "seaweedfs_tpu_torch.storage.vacuum" not in sys.modules
+    for i in range(1, 11):
+        s.write_needle(1, _needle(i, b"data-%d" % i * 20))
+    for i in range(1, 6):
+        s.delete_needle(1, _needle(i, b""))
+    survivor = s.read_needle(1, 8)                 # cached now
+    assert s.needle_cache._lru.peek_contains((1, 8))
+    vacuum.compact(s.volumes[1])
+    s.commit_compaction(1)
+    assert s.volumes[1].super_block.compaction_revision == 1
+    assert not s.needle_cache._lru.peek_contains((1, 8))
+    misses0 = s.needle_cache.counters.misses
+    again = s.read_needle(1, 8)
+    assert s.needle_cache.counters.misses == misses0 + 1
+    assert again.data == survivor.data
 
 
 def test_cached_needle_declines_when_read_failpoint_armed(cached_store):

@@ -1,12 +1,16 @@
 """The port's CLI: `python -m seaweedfs_tpu_torch.cli volume ...` starts a
 volume server of the port that answers HTTP, with `-ecBackend cpu` on a
 host without a CUDA device; `-ecBackend gpu` and `auto` fail at start-up
-there and never serve EC on the CPU; modes and flags whose modules are
-not ported yet exit with a message that says so."""
+there and never serve EC on the CPU; `-workers 2` serves through one
+shared port, `-slo` answers /debug/health, `-profile.hz` /debug/profile,
+and `-cpuprofile` writes its dump at exit. The offline tools `compact`,
+`fix`, `export` and `backup` leave the same bytes as the JAX package's
+CLI on copies of one volume."""
 
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 import re
 import subprocess
@@ -103,17 +107,296 @@ def test_cli_gpu_backend_without_a_card_fails_loudly(tmp_path, backend):
     assert os.listdir(tmp_path) == []
 
 
-@pytest.mark.parametrize("flags,names", [
-    (["-workers", "2"], "worker supervisor"),
-    (["-slo", "volume.read:p99<50ms@99.9"], "stats/slo.py"),
-    (["-cpuprofile", "cpu.prof"], "util/pprof.py"),
-    (["-profile.hz", "10"], "stats/profiler.py"),
-])
-def test_cli_unported_modes_exit_with_a_message(tmp_path, flags, names):
-    proc = subprocess.run(
-        _cli("-ecBackend", "cpu", "-dir", str(tmp_path), *flags), cwd=REPO,
-        env=_env(), capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert names in proc.stderr
-    assert "not ported to seaweedfs_tpu_torch yet" in proc.stderr
-    assert "listening on" not in proc.stdout
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_http(fn, deadline_s: float = 60.0):
+    """fn() until it returns without raising, within deadline_s."""
+    end = time.monotonic() + deadline_s
+    while True:
+        try:
+            return fn()
+        except (OSError, AssertionError, ValueError):
+            if time.monotonic() > end:
+                raise
+            time.sleep(0.2)
+
+
+def _fetch(method: str, url: str, data: bytes | None = None,
+           timeout: float = 10.0) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _started(proc: subprocess.Popen, pattern: str,
+             deadline_s: float = 60.0) -> re.Match:
+    end = time.monotonic() + deadline_s
+    while time.monotonic() < end:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        m = re.search(pattern, line)
+        if m:
+            return m
+    proc.kill()
+    raise AssertionError(f"no line matching {pattern!r}; stderr: "
+                         f"{proc.stderr.read()[-2000:]}")
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    proc.terminate()
+    proc.wait(timeout=30)
+
+
+def test_cli_workers_serve_through_the_shared_port(tmp_path):
+    port = _free_port()
+    proc = subprocess.Popen(
+        _cli("-ecBackend", "cpu", "-dir", str(tmp_path), "-workers", "2",
+             "-port", str(port)), cwd=REPO, env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _started(proc, r"volume supervisor: 2 workers sharing port")
+        shared = f"http://127.0.0.1:{port}"
+
+        def rows():
+            st, body = _fetch("GET", f"{shared}/stats/workers")
+            got = json.loads(body)["workers"]
+            assert st == 200 and len(got) == 2 and all(
+                w["alive"] for w in got)
+            return got
+
+        pids = {w["index"]: w["pid"] for w in _wait_http(rows)}
+        assert len(set(pids.values())) == 2
+        # volumes 3 and 4 land in different partitions (vid % 2)
+        for vid in (3, 4):
+            st, body = _wait_http(lambda vid=vid: _ok(_fetch(
+                "POST", f"{shared}/admin/volume/allocate?volume={vid}")))
+            st, body = _fetch("POST", f"{shared}/{vid},1deadbeef",
+                              NEEDLE + bytes([vid]))
+            assert st == 201, body
+        for _ in range(6):  # whichever worker takes the connection
+            for vid in (3, 4):
+                st, body = _fetch("GET", f"{shared}/{vid},1deadbeef")
+                assert st == 200 and body == NEEDLE + bytes([vid])
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0, proc.stderr.read()[-2000:]
+
+
+def _ok(answer: tuple[int, bytes]) -> tuple[int, bytes]:
+    assert answer[0] == 200, answer
+    return answer
+
+
+def test_cli_slo_answers_debug_health(tmp_path):
+    proc = subprocess.Popen(
+        _cli("-ecBackend", "cpu", "-dir", str(tmp_path),
+             "-slo", "volume.read:p99<50ms@99.9",
+             "-timeline.interval", "1"), cwd=REPO, env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        url = _read_url(proc)
+        st, body = _fetch("GET", f"http://{url}/debug/health")
+        assert st == 200, body
+        health = json.loads(body)
+        assert health["status"] == "ok"
+        assert [o["spec"] for o in health["objectives"]] == [
+            "volume.read:p99<50ms@99.9"]
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0, proc.stderr.read()[-2000:]
+
+
+def test_cli_profile_hz_answers_debug_profile(tmp_path):
+    proc = subprocess.Popen(
+        _cli("-ecBackend", "cpu", "-dir", str(tmp_path),
+             "-profile.hz", "50"), cwd=REPO, env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        url = _read_url(proc)
+
+        def sampled():
+            st, body = _fetch("GET", f"http://{url}/debug/profile")
+            prof = json.loads(body)
+            assert st == 200 and prof["running"] and prof["samples"] > 0
+            return prof
+
+        prof = _wait_http(sampled)
+        assert prof["hz"] == 50
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0, proc.stderr.read()[-2000:]
+
+
+def test_cli_cpuprofile_writes_its_dump_at_exit(tmp_path):
+    import pstats
+    dump = tmp_path / "cpu.prof"
+    proc = subprocess.Popen(
+        _cli("-ecBackend", "cpu", "-dir", str(tmp_path / "v"),
+             "-cpuprofile", str(dump)), cwd=REPO, env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        url = _read_url(proc)
+        assert _fetch("GET", f"http://{url}/status")[0] == 200
+        assert not dump.exists()
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0, proc.stderr.read()[-2000:]
+    assert dump.exists() and dump.stat().st_size > 0
+    pstats.Stats(str(dump))  # a parseable cProfile dump
+
+
+# -- the offline volume tools, against the JAX package's CLI --------------
+
+VID = 7
+
+
+def _run_cli(package: str, *args: str) -> str:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run([sys.executable, "-m", f"{package}.cli", *args],
+                          cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, (package, args, proc.stderr[-2000:])
+    return proc.stdout
+
+
+def _volume_with_garbage(d) -> None:
+    """Volume VID, written by the JAX package: named needles, deletes,
+    an overwrite."""
+    from seaweedfs_tpu.storage.needle import Needle
+    from seaweedfs_tpu.storage.volume import Volume
+    v = Volume(str(d), "", VID)
+    for i in range(1, 25):
+        v.write_needle(Needle(cookie=i, id=i, data=bytes([i]) * (300 * i),
+                              name=f"file{i}.bin".encode(),
+                              mime=b"application/octet-stream"))
+    for i in range(2, 25, 5):
+        v.delete_needle(Needle(cookie=i, id=i))
+    v.write_needle(Needle(cookie=3, id=3, data=b"overwritten",
+                          name=b"file3.txt", mime=b"text/plain"))
+    v.close()
+
+
+def _two_copies(tmp_path):
+    import shutil
+    src = tmp_path / "src"
+    _volume_with_garbage(src)
+    dirs = {}
+    for package in ("seaweedfs_tpu", "seaweedfs_tpu_torch"):
+        dirs[package] = tmp_path / package
+        shutil.copytree(src, dirs[package])
+    return dirs
+
+
+def _volume_files(d) -> dict:
+    return {name: (d / name).read_bytes() for name in sorted(os.listdir(d))
+            if name.endswith((".dat", ".idx"))}
+
+
+def test_cli_compact_equals_the_reference(tmp_path):
+    dirs = _two_copies(tmp_path)
+    outs = {p: _run_cli(p, "compact", "-dir", str(d), "-volumeId",
+                        str(VID)) for p, d in dirs.items()}
+    assert outs["seaweedfs_tpu_torch"] == outs["seaweedfs_tpu"]
+    assert "compacted volume 7" in outs["seaweedfs_tpu_torch"]
+    assert _volume_files(dirs["seaweedfs_tpu_torch"]) == \
+        _volume_files(dirs["seaweedfs_tpu"])
+
+
+def test_cli_fix_equals_the_reference(tmp_path):
+    dirs = _two_copies(tmp_path)
+    for d in dirs.values():
+        (d / f"{VID}.idx").unlink()
+    outs = {p: _run_cli(p, "fix", "-dir", str(d), "-volumeId", str(VID))
+            for p, d in dirs.items()}
+    assert outs["seaweedfs_tpu_torch"].replace(
+        str(dirs["seaweedfs_tpu_torch"]), "D") == \
+        outs["seaweedfs_tpu"].replace(str(dirs["seaweedfs_tpu"]), "D")
+    assert _volume_files(dirs["seaweedfs_tpu_torch"]) == \
+        _volume_files(dirs["seaweedfs_tpu"])
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["-pattern", "file1*"], ["-limit", "5"], ["-o", "OUT"],
+    ["-o", "OUT", "-fileNameFormat", "{id}-{mime}"]])
+def test_cli_export_equals_the_reference(tmp_path, flags):
+    dirs = _two_copies(tmp_path)
+    outs, tars = {}, {}
+    for p, d in dirs.items():
+        tar = tmp_path / f"{p}.tar"
+        args = [str(tar) if f == "OUT" else f for f in flags]
+        outs[p] = _run_cli(p, "export", "-dir", str(d), "-volumeId",
+                           str(VID), *args).replace(str(tar), "OUT")
+        tars[p] = tar.read_bytes() if tar.exists() else None
+    assert outs["seaweedfs_tpu_torch"] == outs["seaweedfs_tpu"]
+    assert tars["seaweedfs_tpu_torch"] == tars["seaweedfs_tpu"]
+    if flags[:1] == ["-o"]:
+        assert tars["seaweedfs_tpu"] is not None
+        assert "exported 19 files" in outs["seaweedfs_tpu"]
+    else:
+        assert outs["seaweedfs_tpu"].count("\n") >= 5
+
+
+def test_cli_backup_equals_the_reference(tmp_path):
+    """Both CLIs back up one volume of a port volume server: its tail into
+    empty directories, the incremental tail after more writes and a
+    delete, then a full copy once the server's vacuum has compacted the
+    volume (a new compaction revision)."""
+    proc = subprocess.Popen(
+        _cli("-ecBackend", "cpu", "-dir", str(tmp_path / "server")),
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        url = _read_url(proc)
+        base = f"http://{url}"
+        assert _fetch("POST", f"{base}/admin/volume/allocate?volume="
+                              f"{VID}")[0] == 200
+        for i in range(1, 9):
+            assert _fetch("POST", f"{base}/{VID},{i:x}0000abcd",
+                          bytes([i]) * (1000 * i))[0] == 201
+        dirs = {p: tmp_path / p for p in ("seaweedfs_tpu",
+                                          "seaweedfs_tpu_torch")}
+        for d in dirs.values():
+            d.mkdir()
+
+        def backup_both() -> dict:
+            return {p: _run_cli(p, "backup", "-dir", str(d), "-volumeId",
+                                str(VID), "-server", url)
+                    for p, d in dirs.items()}
+
+        outs = backup_both()
+        assert outs["seaweedfs_tpu_torch"] == outs["seaweedfs_tpu"]
+        assert "applied 8 records" in outs["seaweedfs_tpu"]
+        assert _volume_files(dirs["seaweedfs_tpu_torch"]) == \
+            _volume_files(dirs["seaweedfs_tpu"])
+        assert _fetch("POST", f"{base}/{VID},90000abcd", b"later")[0] == 201
+        assert _fetch("DELETE", f"{base}/{VID},20000abcd")[0] == 200
+        outs = backup_both()
+        assert outs["seaweedfs_tpu_torch"] == outs["seaweedfs_tpu"]
+        assert "applied 2 records" in outs["seaweedfs_tpu"]
+        assert _volume_files(dirs["seaweedfs_tpu_torch"]) == \
+            _volume_files(dirs["seaweedfs_tpu"])
+        for step in ("compact", "commit"):
+            assert _fetch("POST", f"{base}/admin/vacuum/{step}?volume="
+                                  f"{VID}")[0] == 200, step
+        outs = backup_both()
+        assert outs["seaweedfs_tpu_torch"] == outs["seaweedfs_tpu"]
+        assert "full copy of volume 7" in outs["seaweedfs_tpu"]
+        files = _volume_files(dirs["seaweedfs_tpu"])
+        assert _volume_files(dirs["seaweedfs_tpu_torch"]) == files
+        st, dat = _fetch("GET", f"{base}/admin/file?volume={VID}&ext=.dat")
+        assert st == 200 and files[f"{VID}.dat"] == dat
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0, proc.stderr.read()[-2000:]

@@ -1,9 +1,8 @@
 """The port's images/: resize on read and the EXIF fix on upload, held to
 the JAX package's images/ on the same bytes.
 
-The cases of tests/test_images_query.py that need no query/ (not ported
-yet; its handler's 500 is in test_torch_volume_server.py), pointed at
-the port's volume server. Reference behaviors: weed/images/resizing.go +
+The image cases of tests/test_images_query.py (its query cases are in
+tests/test_torch_query.py), pointed at the port's volume server. Reference behaviors: weed/images/resizing.go +
 orientation.go (hooked at volume_server_handlers_read.go:211-227 /
 needle.go ParseUpload).
 """

@@ -74,7 +74,15 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.server.volume_server",
                 "seaweedfs_tpu_torch.server.fasthttp",
                 "seaweedfs_tpu_torch.server.frameserver",
-                "seaweedfs_tpu_torch.util.client"):
+                "seaweedfs_tpu_torch.util.client",
+                "seaweedfs_tpu_torch.ops.gf256_mxu",
+                "seaweedfs_tpu_torch.storage.vacuum",
+                "seaweedfs_tpu_torch.storage.volume_backup",
+                "seaweedfs_tpu_torch.storage.volume_tier",
+                "seaweedfs_tpu_torch.query.json_query",
+                "seaweedfs_tpu_torch.stats.slo",
+                "seaweedfs_tpu_torch.stats.profiler",
+                "seaweedfs_tpu_torch.util.pprof"):
         assert mod in report["modules"], mod
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == [], leaked

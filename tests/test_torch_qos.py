@@ -3,9 +3,9 @@ clamp, the priority shed ladder, the bandwidth arbiter's floor and
 deterministic ledger, bounded tenant metric labels, keyed retry
 budgets.
 
-The cases of tests/test_qos.py pointed at the port's qos/ registries.
-Its per-tenant SLO spec cases wait for stats/slo.py and its S3 SlowDown
-case for s3/, neither ported yet."""
+The cases of tests/test_qos.py pointed at the port's qos/ registries
+and its stats/slo.py. Its S3 SlowDown case waits for s3/, not ported
+yet."""
 
 from __future__ import annotations
 
@@ -423,6 +423,36 @@ def test_retry_budget_overflow_folds_past_max_pools():
 
 
 # ---- debug surface merge ----
+
+# ---- per-tenant SLO specs ----
+
+def test_slo_spec_parses_tenant_qualifier():
+    from seaweedfs_tpu_torch.stats.slo import SloSpec
+    s = SloSpec("s3.get/paying:p99<200ms@99")
+    assert (s.tier, s.op, s.tenant) == ("s3", "get", "paying")
+    assert s.to_dict()["tenant"] == "paying"
+    # tenant-less specs keep their exact legacy shape
+    s2 = SloSpec("volume.read:p99<50ms@99.9")
+    assert s2.tenant == ""
+    assert "tenant" not in s2.to_dict()
+
+
+def test_slo_tenant_spec_matches_tenant_histogram_rows():
+    from seaweedfs_tpu_torch.stats.slo import SloSpec, _TENANT_HIST, _matches
+    s = SloSpec("s3.get/paying:p99<200ms@99")
+    paying = (_TENANT_HIST
+              + '{tier="s3",op="get",tenant="paying"}')
+    abuser = (_TENANT_HIST
+              + '{tier="s3",op="get",tenant="abuser"}')
+    assert _matches(s, paying)
+    assert not _matches(s, abuser)
+    # a tenant spec never matches the tenant-less tier histogram
+    assert not _matches(
+        s, 'SeaweedFS_request_seconds{tier="s3",op="get"}')
+    # and a tenant-less spec never matches the tenant histogram
+    s2 = SloSpec("s3.get:p99<200ms@99")
+    assert not _matches(s2, paying)
+
 
 def test_qos_merge_payloads_sums_counters_and_takes_worst_level():
     p1 = {"qos": {"tenants": {"a": {"admitted": 3, "throttled": 1,

@@ -7,7 +7,6 @@ dump paths.
 
 The cases of tests/test_tracing.py pointed at the port
 (seaweedfs_tpu_torch): its modules, its servers and its own registries.
-Its pprof case waits for the port's util/pprof.py.
 """
 
 from __future__ import annotations
@@ -303,3 +302,22 @@ def test_merge_metrics_integer_roundtrip_with_histograms():
         [b"c_total 9007199254740992.0\n", b"c_total 1024.0\n"]).decode()
     assert big.startswith("c_total 9007199254742016\n"), big
 
+
+def test_pprof_worker_suffix(tmp_path):
+    from seaweedfs_tpu_torch.util.pprof import profile_path
+    assert profile_path("/x/prof.out", -1) == "/x/prof.out"
+    assert profile_path("/x/prof.out", 2) == "/x/prof.out.w2"
+
+    # smoke: the dump file actually appears at the suffixed path when
+    # a profiled process exits (atexit-driven, so a real subprocess)
+    cpu = tmp_path / "cpu.prof"
+    code = (
+        "from seaweedfs_tpu_torch.util.pprof import setup_profiling\n"
+        f"setup_profiling({str(cpu)!r}, worker_index=1)\n"
+        "sum(range(1000))\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env=dict(os.environ, PYTHONPATH=REPO), timeout=60)
+    assert (tmp_path / "cpu.prof.w1").exists()
+    assert not cpu.exists()
+    import pstats
+    pstats.Stats(str(tmp_path / "cpu.prof.w1"))  # parseable dump
