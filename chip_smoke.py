@@ -7,11 +7,12 @@
                           [--workers-mib N]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
-and the unpack and pack kernels of the GF(2) bit-matrix product), then:
+and the fused kernel of the GF(2) bit-matrix product), then:
 
 1. prints the device facts (nvidia-smi name and power limit, torch and
    CUDA versions, kernel build time, the compiler's register report and
-   the static SASS opcode mix of each kernel instance);
+   the static SASS opcode mix of each kernel instance the main path
+   runs);
 2. holds the GF(256) kernel byte-equal to its plain PyTorch version on
    the card: encode (4x10), rebuild for lost {0,3,7,9}, {10,11,12,13},
    {2,11} and {5}, rows=1, rows=k=16, every byte value at every byte
@@ -26,7 +27,8 @@ and the unpack and pack kernels of the GF(2) bit-matrix product), then:
    the GF(256) kernel: encode 4x10, rebuild for lost {0,3,7,9}, rows=1,
    rows=k=16, k=1, every byte value in every input row, a ragged L =
    1 MiB + 3, L under 17 bytes, the pipeline block, a strided view, rows
-   off a 16-byte boundary, and calls that take several chunks;
+   off a 16-byte boundary, and calls for which the plain version takes
+   several chunks (the kernel takes none);
 3. runs the flagship steps of models/ec_model.py (encode, rebuild of
    lost {0,3,7,9}, verify) on 10 shards x 256 MiB resident on the card,
    checks each against the plain version and times it;
@@ -37,8 +39,11 @@ and the unpack and pack kernels of the GF(2) bit-matrix product), then:
    decoded back by write_dat_file, and every window is verified by
    batch.verify_block before and after one flipped byte;
 5. times the kernel and its plain version at the pipeline's block shape,
-   and the bit-matrix product (its unpack, torch._int_mm and pack apart)
-   at that block and at one 1 MiB rows=1 recover;
+   and the fused bit-matrix kernel beside the GF(256) kernel, its plain
+   version, its bound and its registers and spills at that block and at
+   one 1 MiB rows=1 recover (time_mxu(..., parent=load_parent_k4(DIR))
+   adds an earlier K4 from DIR's copies of its two files, in turns with
+   the fused kernel);
 6. runs the multi-device mesh path (parallel/mesh.py) on a one-rank NCCL
    group: full_cycle_step on --mesh-volumes x 10 shards x --mesh-mib MiB
    made from --seed, then batched_verify clean and after one flipped
@@ -452,8 +457,8 @@ def mxu_cases(dev: torch.device, seed: int, block: int = MIB
         ("small chunks of 3 windows (40, 10, 333)", parity,
          rand(40, 10, 333), per_col * 1000),
     ]
-    # several chunks at that budget: whole windows, then column ranges of
-    # one window
+    # several chunks of the plain version at that budget: whole windows,
+    # then column ranges of one window
     cols = chunk // per_col
     cases.append((f"several chunks of whole windows (64, 10, {block // 16})",
                   parity, rand(64, 10, block // 16), chunk))
@@ -485,8 +490,8 @@ def phase_mxu_vs_plain(dev: torch.device, seed: int,
         rows, k = np.asarray(coeff).shape
         n_chunks = len(list(gf256_mxu.chunks(x.shape[0], x.shape[2], k,
                                               rows, cb)))
-        print(f"  K4 vs plain and K1: {name}, {n_chunks} chunk(s): "
-              f"max_abs_err={err}")
+        print(f"  K4 vs plain and K1: {name}, one launch (the plain "
+              f"version in {n_chunks} chunk(s)): max_abs_err={err}")
         check(err == 0, f"K4 differs from its plain version or K1: {name}")
     return max_err
 
@@ -789,68 +794,147 @@ def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
                          bound(consts.shape[0], k, bsz, length), dev, card)
 
 
-def time_mxu(dev: torch.device, seed: int, card: str) -> dict:
-    """K4's port at the pipeline block (8, 10, 1 MiB) encode and at one
-    1 MiB rows=1 recover (1, 10, 1 MiB): the whole wrapper, its unpack,
-    torch._int_mm and pack apart (each over every chunk of the call), its
-    plain version and K1 at the same shape. Returns the kernels-line
-    numbers of the pipeline block."""
+# a gf2_bitmatrix_kernel<KS, NI> instance in a mangled name
+K4_INSTANCE = re.compile(r"gf2_bitmatrix_kernelILi(\d+)ELi(\d+)E")
+
+
+def k4_instance(rows: int, k: int) -> tuple[int, int]:
+    """(KS, NI) of the instance swtpu_gf2_transform launches: k32 steps,
+    and wgmma.m64n32k32 instructions (4 output rows each) per step."""
+    return -(-k // 4), -(-rows // 4)
+
+
+def ptxas_report(log: str) -> dict:
+    """name -> {"registers", "spill_stores", "spill_loads"} of every
+    entry function in an nvcc -Xptxas=-v log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_stores": None,
+                       "spill_loads": None}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def k4_registers(report: dict, rows: int, k: int) -> dict:
+    """The ptxas numbers of the K4 instance for (rows, k), or {}."""
+    want = k4_instance(rows, k)
+    for fn, facts in report.items():
+        m = K4_INSTANCE.search(fn)
+        if m and tuple(int(v) for v in m.groups()) == want:
+            return facts
+    return {}
+
+
+def load_parent_k4(parent: str):
+    """The wrapper module of an earlier K4 from `parent`, a directory
+    holding that commit's ops/gf256_mxu.py and ops/csrc/gf2_bitmatrix.cu
+    (`git show <commit>:seaweedfs_tpu_torch/ops/gf256_mxu.py` and so on):
+    both are copied into the package as gf256_mxu_parent.py and
+    csrc/gf2_bitmatrix_parent.cu, the module is imported and built, and
+    the copies are removed again (the built library stays in _build/)."""
+    import importlib
+    ops = os.path.dirname(_build.CSRC)
+    py = os.path.join(ops, "gf256_mxu_parent.py")
+    cu = os.path.join(_build.CSRC, "gf2_bitmatrix_parent.cu")
+    with open(os.path.join(parent, "gf256_mxu.py")) as f:
+        src = f.read().replace('_build.load("gf2_bitmatrix")',
+                               '_build.load("gf2_bitmatrix_parent")')
+    try:
+        with open(py, "w") as f:
+            f.write(src)
+        shutil.copy(os.path.join(parent, "gf2_bitmatrix.cu"), cu)
+        mod = importlib.import_module(
+            "seaweedfs_tpu_torch.ops.gf256_mxu_parent")
+        _build.load("gf2_bitmatrix_parent")
+    finally:
+        for path in (py, cu):
+            if os.path.exists(path):
+                os.remove(path)
+    return mod
+
+
+def time_mxu(dev: torch.device, seed: int, card: str, report: dict,
+             block: int = MIB, timer=cuda_ms, parent=None) -> dict:
+    """K4's fused kernel at the pipeline block (8, 10, `block`) encode and
+    at one `block` rows=1 recover (1, 10, `block`), with K1 and the plain
+    version on the same inputs in the same call, the bound and its share,
+    and the instance's registers and spills from the ptxas `report`.
+    With `parent` (a module from load_parent_k4) the earlier K4 is held
+    to the same output and timed in turns with the fused kernel (parent,
+    fused, fused, parent). Returns the kernels-line numbers of the
+    pipeline block. `timer` is cuda_ms on the card; the tests rehearse
+    on the CPU with another."""
     gen = torch.Generator(device=dev).manual_seed(seed + 6)
     out = {}
     for label, coeff, shape in (
-            ("pipeline block (8, 10, 1048576) encode", gf.parity_matrix(),
-             (ecb.DEFAULT_BATCH_WINDOWS, gf.DATA_SHARDS, MIB)),
-            ("recover rows=1 (1, 10, 1048576)",
-             gf.shard_rows([0], present_for([0])), (1, gf.DATA_SHARDS, MIB))):
+            (f"pipeline block (8, 10, {block}) encode", gf.parity_matrix(),
+             (ecb.DEFAULT_BATCH_WINDOWS, gf.DATA_SHARDS, block)),
+            (f"recover rows=1 (1, 10, {block})",
+             gf.shard_rows([0], present_for([0])),
+             (1, gf.DATA_SHARDS, block))):
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                           generator=gen)
         bitmat = device_bitmatrix(coeff, dev)
         consts = device_consts(coeff, dev)
         rows, k = coeff.shape
-        parts = list(gf256_mxu.chunks(shape[0], shape[2], k, rows))
-        mt = bitmat.t()
-        planes = [gf256_mxu.unpack(x, k, *p) for p in parts]
-        sums = [torch._int_mm(pl_, mt) for pl_ in planes]
-        y = torch.empty((shape[0], rows, shape[2]), dtype=torch.uint8,
-                        device=dev)
-
-        def unpack_all():
-            for p in parts:
-                gf256_mxu.unpack(x, k, *p)
-
-        def mm_all():
-            for pl_ in planes:
-                torch._int_mm(pl_, mt)
-
-        def pack_all():
-            for p, s_ in zip(parts, sums):
-                gf256_mxu.pack(s_, rows, *p, y)
-
-        ms = cuda_ms(lambda: gf2_bitmatrix_transform(bitmat, x), 20)
-        unpack_ms = cuda_ms(unpack_all, 20)
-        mm_ms = cuda_ms(mm_all, 20)
-        pack_ms = cuda_ms(pack_all, 20)
-        k1_ms = cuda_ms(lambda: gf256_transform(consts, x), 20)
-        plain_ms = cuda_ms(
+        got = gf2_bitmatrix_transform(bitmat, x)
+        check(abs_err(got, gf256_transform(consts, x)) == 0,
+              f"K4 differs from K1 at {label}")
+        del got
+        ms = timer(lambda: gf2_bitmatrix_transform(bitmat, x), 50)
+        b2b_ms = timer(lambda: gf2_bitmatrix_transform(bitmat, x), 50,
+                       spin=False)
+        k1_ms = timer(lambda: gf256_transform(consts, x), 50)
+        if parent is not None:
+            check(abs_err(parent.gf2_bitmatrix_transform(bitmat, x),
+                          gf2_bitmatrix_transform(bitmat, x)) == 0,
+                  f"the parent's K4 differs from the fused kernel at {label}")
+            turns = {"parent": [], "fused": []}
+            for name in ("parent", "fused", "fused", "parent"):
+                fn = (parent if name == "parent" else gf256_mxu
+                      ).gf2_bitmatrix_transform
+                turns[name].append(timer(lambda: fn(bitmat, x), 20))
+            print(f"  K4 {label} in turns: parent (unfused) "
+                  f"{turns['parent'][0]:.4f}, {turns['parent'][1]:.4f} ms; "
+                  f"fused {turns['fused'][0]:.4f}, {turns['fused'][1]:.4f} "
+                  f"ms [{card}]")
+        plain_ms = timer(
             lambda: gf2_bitmatrix_transform_reference(bitmat, x), 3)
         b = bound(rows, k, shape[0], shape[2])
-        planes_b = shape[0] * shape[2] * 8 * k
-        sums_b = shape[0] * shape[2] * 32 * rows
-        moved = shape[0] * shape[2] * (k + rows) + 2 * (planes_b + sums_b)
-        print(f"  K4 {label}: {ms:.4f} ms in {len(parts)} chunk(s) "
-              f"(unpack {unpack_ms:.4f}, torch._int_mm {mm_ms:.4f}, pack "
-              f"{pack_ms:.4f}); K1 {k1_ms:.4f} ms; plain {plain_ms:.4f} ms; "
-              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-              f"({b['bytes']} bytes; int8 ops {b['ops_ms']:.4f} ms), share "
-              f"{b['bound_ms'] / ms:.3f}; the unfused form moves {moved} "
-              f"bytes = {moved / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM peak "
-              f"[{card}]")
-        del planes, sums
+        ks, ni = k4_instance(rows, k)
+        padded_ms = (2 * 32 * ks * 32 * ni * shape[0] * shape[2]
+                     / INT8_OPS_PER_S * 1e3)
+        regs = k4_registers(report, rows, k)
+        print(f"  K4 {label}: {ms:.4f} ms, one launch (device alone; back "
+              f"to back with the host's calls {b2b_ms:.4f} ms); K1 "
+              f"{k1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} "
+              f"bytes; int8 ops {b['ops_ms']:.4f} ms, {padded_ms:.4f} ms as "
+              f"the instance pads them: K {32 * ks}, N {32 * ni}), share "
+              f"{b['bound_ms'] / ms:.3f} (K1 {b['bound_ms'] / k1_ms:.3f}); "
+              f"instance KS={ks} NI={ni}: {regs.get('registers')} "
+              f"registers, spill stores {regs.get('spill_stores')} B, "
+              f"spill loads {regs.get('spill_loads')} B [{card}]")
         if not out:
-            out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                   "bound_by": b["bound_by"], "unpack_ms": unpack_ms,
-                   "mm_ms": mm_ms, "pack_ms": pack_ms, "k1_ms": k1_ms}
-    torch.cuda.empty_cache()
+            out = {"ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
+                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                   "k1_ms": k1_ms, **regs}
+        del x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1733,9 +1817,9 @@ def phase_mxu_server(dev: torch.device, seed: int, target: int,
     8's volume read with shards {0,3,7,9} deleted (pass B, as many K4
     calls as phase 8's pass B launched K1), /admin/ec/rebuild, and a
     forced scrub cycle that localizes one flipped byte of .ec12 through
-    K4. Returns the K4 calls, K4 launches (chunks) and K1 launches per
+    K4. Returns the K4 calls, K4 launches and K1 launches per
     step and what the geometry and the reports say the calls and K1's
-    launches must be."""
+    launches must be (K4's launches must equal its calls)."""
     import asyncio
     prior = os.environ.get(pl.METHOD_ENV)
     os.environ[pl.METHOD_ENV] = "mxu"
@@ -1915,14 +1999,14 @@ async def _drive_mxu_server(dev: torch.device, seed: int, target: int,
 
 def check_mxu_counts(seen: dict) -> tuple[int, int]:
     """Each step's K4 calls and K1 launches equal its expected counts, and
-    each K4 call launched at least one chunk (no K4 launch without a
-    call); returns the K4 launches (chunks) and calls of the path."""
+    K4 launched its kernel exactly once per call; returns the K4 launches
+    and calls of the path."""
     for step, want in seen["expected"].items():
         got = seen["launches"][step]
         check({key: got[key] for key in want} == want
-              and got["K4 launches"] >= got["K4 calls"]
-              and (got["K4 launches"] == 0) == (got["K4 calls"] == 0),
-              f"MXU path, {step}: counts {got}, expected {want}")
+              and got["K4 launches"] == got["K4 calls"],
+              f"MXU path, {step}: counts {got}, expected {want} and one "
+              f"K4 launch a call")
     return (sum(v["K4 launches"] for v in seen["launches"].values()),
             sum(v["K4 calls"] for v in seen["launches"].values()))
 
@@ -2205,22 +2289,44 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     print(f"  kernel build (nvcc, sm_90a, {len(_build.SOURCES)} sources in "
           f"parallel): {time.perf_counter() - t0:.2f} s")
+    report = {}
     for name, log in logs.items():
+        report.update(ptxas_report(log))
         for line in log.splitlines():
+            if "gf2_bitmatrix" in name and not ("wgmma" in line
+                                                or "warning" in line):
+                continue
             if any(w in line for w in ("Compiling entry", "registers",
-                                       "spill")):
+                                       "spill", "wgmma", "warning")):
                 print(f"  {name}: {line.strip()}")
+    k4 = {fn: f for fn, f in report.items() if K4_INSTANCE.search(fn)}
+    if logs["gf2_bitmatrix"]:
+        check(len(k4) == 16, f"ptxas reported {len(k4)} K4 instances, "
+              f"expected 16 (KS 1..4 x NI 1..4)")
+        regs = [f["registers"] for f in k4.values()]
+        spills = sum(f["spill_stores"] + f["spill_loads"]
+                     for f in k4.values())
+        print(f"  gf2_bitmatrix: {len(k4)} instances, {min(regs)}.."
+              f"{max(regs)} registers, {spills} bytes spilled in all; "
+              f"rows=k=16 instance: {k4_registers(report, 16, 16)}")
+    else:
+        print("  gf2_bitmatrix: library built before this run, no ptxas "
+              "report")
     for fn, mix in sass_mix("gf256_transform").items():
         groups = re.search(r"ILi(\d+)E", fn)
         print(f"  gf256_transform SASS (cuobjdump -sass, static count), "
               f"instance for {groups.group(1) if groups else fn} group(s) "
               f"of 4 rows: {sum(mix.values())} instructions, "
               f"{dict(mix.most_common(12))}")
+    main_instances = {k4_instance(r, gf.DATA_SHARDS) for r in (1, 4)}
     for fn, mix in sass_mix("gf2_bitmatrix").items():
-        print(f"  gf2_bitmatrix SASS (cuobjdump -sass, static count), "
-              f"{'unpack' if 'unpack' in fn else 'pack'} kernel: "
-              f"{sum(mix.values())} instructions, "
-              f"{dict(mix.most_common(12))}")
+        m = K4_INSTANCE.search(fn)
+        inst = tuple(int(v) for v in m.groups()) if m else None
+        if inst in main_instances:
+            print(f"  gf2_bitmatrix SASS (cuobjdump -sass, static count), "
+                  f"instance KS={inst[0]} NI={inst[1]}: "
+                  f"{sum(mix.values())} instructions, "
+                  f"{dict(mix.most_common(14))}")
 
     print("== phase 2: kernel vs plain version on the card")
     max_err = phase_kernel_vs_plain(dev, args.seed)
@@ -2249,7 +2355,7 @@ def main(argv=None) -> int:
 
     print("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
-    t4 = time_mxu(dev, args.seed, card)
+    t4 = time_mxu(dev, args.seed, card, report)
 
     print("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
     with pdist.init(device="cuda"):
@@ -2296,9 +2402,9 @@ def main(argv=None) -> int:
                            args.mxu_extra_mib * MIB, server, card)
     mxu_launches, mxu_calls = check_mxu_counts(mxu)
     mxu_k1 = sum(v["K1"] for v in mxu["launches"].values())
-    print(f"  on the MXU path: K4 {mxu_launches} launches (chunks) in "
-          f"{mxu_calls} calls, K1 {mxu_k1} launches, each step's equal to "
-          f"its expected count {mxu['expected']}")
+    print(f"  on the MXU path: K4 {mxu_launches} launches in {mxu_calls} "
+          f"calls, K1 {mxu_k1} launches, each step's equal to its expected "
+          f"count {mxu['expected']}")
 
     print("== phase 10: volume -workers 2 -ecBackend gpu (two processes, "
           "each with its own CUDA context, one shared port)")

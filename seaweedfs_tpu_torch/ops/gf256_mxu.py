@@ -1,6 +1,6 @@
 """The GF(256) shard transform as a GF(2) bit-matrix product on Hopper's
-int8 tensor cores: the wrapper of the CUDA unpack and pack kernels, and
-its plain PyTorch version.
+int8 tensor cores: the wrapper of the fused CUDA kernel, and its plain
+PyTorch version.
 
 `gf2_bitmatrix_transform(bitmat, x)` computes what `gf256_transform`
 computes (kernel K1): for a (rows, k) GF(256) coefficient matrix C, given
@@ -9,29 +9,30 @@ as its (8 rows, 8 k) int8 GF(2) bit-matrix M = gf.gf2_matrix(C)
 
     out[b, r, :] = XOR_i gf_mul(C[r, i], x[b, i, :])
 
-as out_bits = M x in_bits (mod 2), one byte column at a time:
-csrc/gf2_bitmatrix.cu unpacks the k input bytes of every column into one
-row of an (N, 8 k) int8 matrix, `torch._int_mm` multiplies it by M's
-transpose into exact int32 sums (a plain matrix product outside any
-kernel, as the JAX package leaves it to XLA's dot_general), and the pack
-kernel turns each row's 8 rows sums into `rows` bytes by their low bits.
-See the source's header for the design and what bounds it.
+as out_bits = M x in_bits (mod 2), one byte column at a time. On the card
+one kernel (csrc/gf2_bitmatrix.cu) does all of it: it unpacks each
+column's k input bytes into int8 tensor-core fragments in registers,
+multiplies them by M's transpose with wgmma, and packs the low bits of
+the int32 sums into the `rows` output bytes in its epilogue. It reads x
+once and writes the output once; the planes and sums never reach device
+memory, so the call needs no chunking. See the source's header for the
+design and what bounds it.
 
 It is the port of seaweedfs_tpu/ops/gf256_mxu.py (kernel K4:
-`_plane_matrix`, `_mxu_block`, `mxu_words_transform`), which the
-reference's pipeline reaches under SWTPU_EC_METHOD=mxu; the port's
+`_plane_matrix` :33, `_mxu_block` :62, `mxu_words_transform` :86), which
+the reference's pipeline reaches under SWTPU_EC_METHOD=mxu; the port's
 pipeline reaches this module under SWTPU_TORCH_EC_METHOD=mxu. The
 reference multiplies a (32 rows, 32 k) matrix over the 32 bitplanes of
 each uint32 word; that matrix is M repeated on the diagonal of the word's
 4 byte slots, so the port works per byte and does a quarter of the
 reference's products.
 
-The planes and sums of N columns take N (8 k + 32 rows) bytes, 30 times
-the block's own bytes at k = 10, rows = 4, so the block is cut into
-chunks of at most `chunk_bytes` of both together (the same trap as the
-TPU program's 2048-word-row chunks).
+The plain version materialises the planes and sums of N columns,
+N (8 k + 32 rows) bytes, 30 times the block's own bytes at k = 10,
+rows = 4, so it cuts the block into `chunks` of at most `chunk_bytes` of
+both together (the same trap as the TPU program's 2048-word-row chunks).
 
-On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version, `gf2_bitmatrix_transform_reference`.
 """
 
@@ -50,19 +51,13 @@ from . import _build
 MAX_ROWS = 16
 MAX_K = 16
 
-# planes plus int32 sums of one chunk, at most
+# planes plus int32 sums of one chunk of the plain version, at most
 CHUNK_BYTES = 256 << 20
 
-# torch._int_mm on CUDA takes more than 16 rows; a chunk's plane rows are
-# padded up to a multiple of 16, at least 32 (rows the pack never reads)
-_MM_ROW_QUANTUM = 16
-_MM_MIN_ROWS = 32
-
 # what gf2_bitmatrix_transform launched on the card, which chip_smoke.py
-# reads to show which path went through K4: `launches` counts chunks (each
-# one launch of the unpack kernel, one torch._int_mm and one launch of the
-# pack kernel), `calls` counts transforms; raised under a lock, since a
-# volume server launches from several executor threads
+# reads to show which path went through K4: `launches` counts kernel
+# launches (one a call), `calls` counts transforms; raised under a lock,
+# since a volume server launches from several executor threads
 launches = 0
 calls = 0
 _count_lock = threading.Lock()
@@ -83,21 +78,15 @@ def count_call() -> None:
 
 
 @functools.cache
-def _kernels():
+def _kernel():
     lib = _build.load("gf2_bitmatrix")
-    unpack = lib.swtpu_gf2_unpack
-    unpack.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-    unpack.restype = ctypes.c_int
-    pack = lib.swtpu_gf2_pack
-    pack.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                     ctypes.c_longlong, ctypes.c_void_p]
-    pack.restype = ctypes.c_int
-    return unpack, pack
+    fn = lib.swtpu_gf2_transform
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=256)
@@ -128,7 +117,7 @@ def _check(bitmat: torch.Tensor, x: torch.Tensor) -> None:
                          f"{tuple(bitmat.shape)}")
     rows, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
     if not (1 <= rows <= MAX_ROWS and 1 <= k <= MAX_K):
-        raise ValueError(f"the kernels take 1..{MAX_ROWS} rows and "
+        raise ValueError(f"the kernel takes 1..{MAX_ROWS} rows and "
                          f"1..{MAX_K} inputs, got rows={rows} k={k}")
     if x.dim() != 3 or x.shape[1] != k:
         raise ValueError(f"x must be (B, {k}, L), got {tuple(x.shape)}")
@@ -139,8 +128,8 @@ def _check(bitmat: torch.Tensor, x: torch.Tensor) -> None:
 def chunks(bsz: int, length: int, k: int, rows: int,
            chunk_bytes: int = CHUNK_BYTES):
     """Yield (b0, nb, l0, lc): windows b0 .. b0+nb-1, columns l0 .. l0+lc-1,
-    covering a (bsz, k, length) block in pieces whose planes and sums take
-    at most chunk_bytes (at least 16 columns a piece): whole block, else
+    covering a (bsz, k, length) block in pieces whose planes and sums, as
+    the plain version materialises them, take at most chunk_bytes (at least 16 columns a piece): whole block, else
     whole windows, else 16-aligned column ranges of one window."""
     per_col = 8 * k + 32 * rows
     cols = max(16, chunk_bytes // per_col)
@@ -157,47 +146,20 @@ def chunks(bsz: int, length: int, k: int, rows: int,
                 yield b0, 1, l0, min(step, length - l0)
 
 
-def _mm_rows(n: int) -> int:
-    return max(_MM_MIN_ROWS, -(-n // _MM_ROW_QUANTUM) * _MM_ROW_QUANTUM)
-
-
-def unpack(x: torch.Tensor, k: int, b0: int, nb: int, l0: int, lc: int
-           ) -> torch.Tensor:
-    """Launch the unpack kernel for one chunk: (mm rows, 8 k) int8 planes,
-    the first nb * lc rows written."""
-    planes = torch.empty((_mm_rows(nb * lc), 8 * k), dtype=torch.int8,
-                         device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernels()[0](x.data_ptr(), k, x.stride(0), x.stride(1), b0, nb,
-                        l0, lc, planes.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"gf2 unpack launch failed: CUDA error {err}")
-    return planes
-
-
-def pack(sums: torch.Tensor, rows: int, b0: int, nb: int, l0: int, lc: int,
-         out: torch.Tensor) -> None:
-    """Launch the pack kernel for one chunk's int32 sums into out."""
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = _kernels()[1](sums.data_ptr(), rows, b0, nb, l0, lc,
-                        out.data_ptr(), out.stride(0), out.stride(1),
-                        stream)
-    if err != 0:
-        raise RuntimeError(f"gf2 pack launch failed: CUDA error {err}")
-
-
 def gf2_bitmatrix_transform(bitmat: torch.Tensor, x: torch.Tensor,
                             chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """(8 rows, 8 k) int8 bit-matrix, (B, k, L) uint8 -> (B, rows, L) uint8.
 
     x may be strided along its first two axes; its last axis must be
-    contiguous. On CUDA the kernels and the products are launched on the
-    current stream and the call returns without synchronising."""
+    contiguous. On CUDA one kernel is launched on the current stream and
+    the call returns without synchronising; `chunk_bytes` bounds the
+    plain version's intermediates on the CPU and means nothing to the
+    kernel."""
     _check(bitmat, x)
     if x.device.type == "cpu":
         return gf2_bitmatrix_transform_reference(bitmat, x, chunk_bytes)
     if x.device.type != "cuda":
-        raise ValueError(f"no GF(2) bit-matrix kernels for device "
+        raise ValueError(f"no GF(2) bit-matrix kernel for device "
                          f"{x.device}")
     if x.shape[2] > 1 and x.stride(2) != 1:
         raise ValueError("x's last axis must be contiguous")
@@ -207,14 +169,15 @@ def gf2_bitmatrix_transform(bitmat: torch.Tensor, x: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
-    # the (8 k, 8 rows) transpose as a column-major view: cuBLASLt's int8
-    # product takes its second operand in that layout (a row-major one
-    # fails with CUBLAS_STATUS_NOT_SUPPORTED on the H100)
-    mt = bitmat.contiguous().t()
-    for b0, nb, l0, lc in chunks(bsz, length, k, rows, chunk_bytes):
-        planes = unpack(x, k, b0, nb, l0, lc)
-        pack(torch._int_mm(planes, mt), rows, b0, nb, l0, lc, out)
-        count_launch()
+    bitmat = bitmat.contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel()(x.data_ptr(), k, x.stride(0), x.stride(1), bsz, length,
+                    bitmat.data_ptr(), rows, out.data_ptr(), out.stride(0),
+                    out.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"gf2 bit-matrix kernel launch failed: CUDA "
+                           f"error {err}")
+    count_launch()
     count_call()
     return out
 
@@ -224,7 +187,8 @@ def gf2_bitmatrix_transform_reference(bitmat: torch.Tensor, x: torch.Tensor,
                                       ) -> torch.Tensor:
     """The plain PyTorch version, on any device, in uint8 ops: unpack each
     column's bits, XOR in the bit-matrix's column of every set input bit,
-    pack the output bits; chunked as the kernels are."""
+    pack the output bits; in `chunks` of at most chunk_bytes of planes
+    and sums."""
     _check(bitmat, x)
     rows, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
     bsz, _, length = x.shape

@@ -379,6 +379,65 @@ def test_mxu_phase2_cases_rehearse_on_the_cpu(monkeypatch):
                for p in plans)
 
 
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120gf2_bitmatrix_kernelILi3ELi1EEEvPKhixxxxxPKaiPhxx' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120gf2_bitmatrix_kernelILi3ELi1EEEvPKhixxxxxPKaiPhxx
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 10752 bytes smem, 456 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120gf2_bitmatrix_kernelILi3ELi2EEEvPKhixxxxxPKaiPhxx' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120gf2_bitmatrix_kernelILi3ELi2EEEvPKhixxxxxPKaiPhxx
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 40 registers, 10752 bytes smem, 456 bytes cmem[0]
+"""
+
+
+def test_mxu_timing_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 5's K4 timing at a small window on the CPU, with a timer
+    that runs each call once: the kernel's output is held to K1 before
+    timing, the pipeline block is (8, 10, window) and the registers and
+    spills come from the ptxas report of the instance each shape runs
+    (rows 1 and 4 at k = 10: KS=3, NI=1)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    report = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert [f["registers"] for f in report.values()] == [64, 40]
+    assert chip_smoke.k4_registers(report, 5, 10) == {
+        "registers": 40, "spill_stores": 4, "spill_loads": 8}
+    assert chip_smoke.k4_registers(report, 1, 9) == report[next(iter(report))]
+    assert chip_smoke.k4_instance(4, 10) == (3, 1)
+    assert chip_smoke.k4_instance(16, 16) == (4, 4)
+    assert chip_smoke.k4_instance(5, 1) == (1, 2)
+    shapes = []
+
+    def timer(fn, iters, spin=True):
+        shapes.append(iters)
+        fn()
+        return 1.0
+
+    t = chip_smoke.time_mxu(torch.device("cpu"), 0, "cpu", report,
+                            block=4096, timer=timer)
+    assert shapes == [50, 50, 50, 3] * 2
+    b = chip_smoke.bound(4, 10, 8, 4096)
+    assert t["bound_ms"] == b["bound_ms"] and t["bound_by"] == "bytes"
+    assert t["registers"] == 64 and t["spill_stores"] == 0
+    assert t["ms"] == t["k1_ms"] == t["plain_ms"] == 1.0
+    # an earlier K4 (here its plain version) is held to the same output
+    # and timed in turns with the fused kernel
+    from types import SimpleNamespace
+    shapes.clear()
+    parent = SimpleNamespace(gf2_bitmatrix_transform=chip_smoke.
+                             gf2_bitmatrix_transform_reference)
+    chip_smoke.time_mxu(torch.device("cpu"), 0, "cpu", report, block=4096,
+                        timer=timer, parent=parent)
+    assert shapes == [50, 50, 50, 20, 20, 20, 20, 3] * 2
+    wrong = SimpleNamespace(gf2_bitmatrix_transform=lambda b, x: (
+        chip_smoke.gf2_bitmatrix_transform_reference(b, x) ^ 1))
+    with pytest.raises(RuntimeError, match="parent's K4 differs"):
+        chip_smoke.time_mxu(torch.device("cpu"), 0, "cpu", report,
+                            block=4096, timer=timer, parent=wrong)
+
+
 def test_mxu_server_phase_rehearses_on_the_cpu(monkeypatch):
     """Phases 8 and 9 on volumes of a few MiB on the CPU: phase 8 keeps
     its sealed volume; phase 9's fresh server under
@@ -416,14 +475,19 @@ def test_mxu_server_phase_rehearses_on_the_cpu(monkeypatch):
     assert exp["scrub"]["K4 calls"] == 14 and exp["scrub"]["K1"] >= 1 + 14
     with pytest.raises(RuntimeError, match="MXU path, generate_batch"):
         chip_smoke.check_mxu_counts(seen)
-    # calls without a chunk launched fail too; two chunks a call pass
+    # calls without a launch fail too, and so do two launches a call: the
+    # fused kernel launches once a call
     seen["launches"] = {k: {**v, "K4 launches": 0} for k, v in exp.items()}
     with pytest.raises(RuntimeError, match="MXU path, generate_batch"):
         chip_smoke.check_mxu_counts(seen)
     seen["launches"] = {k: {**v, "K4 launches": 2 * v["K4 calls"]}
                         for k, v in exp.items()}
+    with pytest.raises(RuntimeError, match="MXU path, generate_batch"):
+        chip_smoke.check_mxu_counts(seen)
+    seen["launches"] = {k: {**v, "K4 launches": v["K4 calls"]}
+                        for k, v in exp.items()}
     calls = sum(v["K4 calls"] for v in exp.values())
-    assert chip_smoke.check_mxu_counts(seen) == (2 * calls, calls)
+    assert chip_smoke.check_mxu_counts(seen) == (calls, calls)
 
 
 def test_workers_phase_rehearses_on_the_cpu(monkeypatch):

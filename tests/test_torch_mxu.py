@@ -13,11 +13,10 @@ small_recover_bytes, and `localize_corrupt_rows`; the JAX package's
 SWTPU_EC_METHOD alone moves nothing in the port.
 
 Also: the port's byte-plane matrix is the p = 0 diagonal block of JAX's
-`_plane_matrix`; chunks of a small budget give the same bytes; a numpy
-model of the two CUDA kernels' index arithmetic (tiles, 16-byte pairs,
-odd starts and tails, the pack's groups of 16) reproduces the transform;
-the wrapper rejects what the kernels do not take. The kernels themselves
-run only on the card: the test marked `gpu` skips here.
+`_plane_matrix`; the plain version's chunks of a small budget give the
+same bytes; the wrapper rejects what the kernel does not take. The fused
+kernel runs only on the card (the tests marked `gpu` skip here); a numpy
+model of its index arithmetic is in tests/test_torch_mxu_fused.py.
 """
 
 import os
@@ -156,84 +155,6 @@ def test_pipeline_block_takes_one_window_a_chunk():
     chunks; the whole block's would be 1.6 GiB."""
     assert list(chunks(8, 1 << 20, 10, 4)) == [
         (b, 1, 0, 1 << 20) for b in range(8)]
-
-
-# -- the kernels' arithmetic, in numpy -------------------------------------
-# csrc/gf2_bitmatrix.cu, index for index: the unpack's tiles of 256
-# columns, its halves of 8 spread bytes written in 16-byte pairs after an
-# odd start, and the pack's threads of 16 columns of one output row.
-
-TILE = 256
-
-
-def _spread(v: int) -> bytes:
-    r = (v * 0x01010101) & 0xFFFFFFFF
-    lo = ((r & 0x08040201) + 0x7F7F7F7F) >> 7 & 0x01010101
-    hi = ((r & 0x80402010) + 0x7F7F7F7F) >> 7 & 0x01010101
-    return lo.to_bytes(4, "little") + hi.to_bytes(4, "little")
-
-
-def _unpack_model(x, b0, nb, l0, lc, mm_rows):
-    k = x.shape[1]
-    planes = bytearray(b"\xEE" * (mm_rows * 8 * k))
-    tiles = -(-lc // TILE)
-    for blk in range(nb * tiles):
-        bi, t0 = divmod(blk, tiles)
-        t0 *= TILE
-        n = min(TILE, lc - t0)
-        tile = x[b0 + bi, :, l0 + t0:l0 + t0 + n]
-        h0 = (bi * lc + t0) * k
-        halves, lead = n * k, h0 & 1
-        written = []
-
-        def put(h):
-            p, i = divmod(h, k)
-            planes[(h0 + h) * 8:(h0 + h + 1) * 8] = _spread(int(tile[i, p]))
-            written.append(h)
-        if lead:
-            put(0)
-        for q in range((halves - lead) // 2):
-            h = lead + 2 * q
-            assert (h0 + h) * 8 % 16 == 0  # a 16-byte store
-            put(h)
-            put(h + 1)
-        if (halves - lead) & 1:
-            put(halves - 1)
-        assert sorted(written) == list(range(halves))
-    return np.frombuffer(bytes(planes), np.int8).reshape(mm_rows, 8 * k)
-
-
-def _pack_model(sums, rows, b0, nb, l0, lc, out):
-    groups = -(-lc // 16)
-    flat = sums.reshape(-1)
-    for t in range(nb * rows * groups):
-        bi, rem = divmod(t, rows * groups)
-        r, g = divmod(rem, groups)
-        c0 = g * 16
-        for p in range(min(16, lc - c0)):
-            base = ((bi * lc + c0 + p) * rows + r) * 8
-            out[b0 + bi, r, l0 + c0 + p] = sum(
-                int(flat[base + j] & 1) << j for j in range(8))
-
-
-@pytest.mark.parametrize("bsz,k,length,rows,budget", [
-    (2, 10, 1000, 4, 1 << 30), (3, 3, 777, 5, 100 * (24 + 160)),
-    (1, 1, 13, 2, 1 << 30), (5, 7, 300, 3, 50 * (56 + 96)),
-    (2, 16, 600, 16, 1 << 30)])
-def test_kernel_model_matches_reference(bsz, k, length, rows, budget):
-    r = np.random.default_rng(bsz * 1000 + length)
-    x = r.integers(0, 256, (bsz, k, length)).astype(np.uint8)
-    coeff = r.integers(0, 256, (rows, k)).astype(np.uint8)
-    m = gf.gf2_matrix(coeff).astype(np.int32)
-    out = np.zeros((bsz, rows, length), np.uint8)
-    for b0, nb, l0, lc in chunks(bsz, length, k, rows, budget):
-        planes = _unpack_model(x, b0, nb, l0, lc,
-                               gf256_mxu._mm_rows(nb * lc))
-        _pack_model(planes.astype(np.int32) @ m.T, rows, b0, nb, l0, lc,
-                    out)
-    want = np.stack([np.stack(RefCpuEncoder(use_native=False)._apply_numpy(
-        coeff, list(x[b]))) for b in range(bsz)])
-    assert np.array_equal(out, want)
 
 
 # -- the wrapper ------------------------------------------------------------
