@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
                           [--server-mib N] [--mxu-extra-mib N]
-                          [--workers-mib N]
+                          [--workers-mib N] [--cluster-assign-mib N]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
 and the fused kernel of the GF(2) bit-matrix product), then:
@@ -85,8 +85,25 @@ and the fused kernel of the GF(2) bit-matrix product), then:
    (ceil(W/8) dispatches, parity equal to the host CpuEncoder's), the
    needles of worker 1's volume read with 4 shards lost, each worker
    holding a CUDA context of its own, and again after worker 1 is
-   SIGKILLed and respawned; then prints one JSON line describing each
-   kernel.
+   SIGKILLed and respawned;
+11. runs the port's own cluster, no module of seaweedfs_tpu in any of
+   its processes: a port master (cli.start_master, -volumeSizeLimitMB
+   1024, an unpaced -autopilot.mbps 0) and two port volume servers
+   (cli.start_volume, -ecBackend gpu) in process, and the port's shell in
+   process and through `python -m seaweedfs_tpu_torch.cli shell -c` in a
+   subprocess whose -X importtime log lists no jax module. Phase 8's
+   sealed 1 GiB volume (hard-linked) is the EC volume, and
+   --cluster-assign-mib more go through /dir/assign and POST. ec.encode
+   spreads its shards over both servers (parity sha256-equal to phase
+   8's); every needle is read through /dir/lookup and GET intact and
+   with 4 shards of one server lost (recovers gather the other's
+   shards); a forced autopilot cycle rebuilds them with remote sources
+   (sha256-equal); ec.verify runs clean and finds one flipped byte of
+   .ec12, which a forced scrub localizes; ec.rebuild regenerates .ec12
+   and 3 shards of the other server (sha256-equal); ec.decode, with data
+   shard 0 lost, rebuilds it and reassembles a .dat sha256-equal to the
+   original; checks each step's kernel launches against its geometry;
+   then prints one JSON line describing each kernel.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1546,13 +1563,15 @@ def dead_master() -> str:
         return f"127.0.0.1:{s.getsockname()[1]}"
 
 
-def server_args(backend: str, directory: str = SERVER_DIR) -> list[str]:
-    """The port CLI's `volume` command line for phases 8 and 9: port 0,
-    the -cache.mem and -ec.smallrecover defaults written out, and an
+def server_args(backend: str, directory: str = SERVER_DIR,
+                master: str | None = None) -> list[str]:
+    """The port CLI's `volume` command line for phases 8, 9 and 11: port
+    0, the -cache.mem and -ec.smallrecover defaults written out, and an
     unpaced scrubber (-scrub.mbps 0: the default 8 MiB/s would take
-    minutes over a 1 GiB volume; phase 7's Scrubber runs unpaced too)."""
+    minutes over a 1 GiB volume; phase 7's Scrubber runs unpaced too).
+    With no `master` the heartbeats go where nothing listens."""
     return ["volume", "-port", "0", "-dir", directory,
-            "-master", dead_master(), "-ecBackend", backend,
+            "-master", master or dead_master(), "-ecBackend", backend,
             "-cache.mem", "32", "-ec.smallrecover", str(MIB),
             "-scrub.mbps", "0", "-scrub.pausems", "0"]
 
@@ -2248,6 +2267,568 @@ async def _drive_workers(seed: int, target: int, card: str, port: int,
     return {"timing": timing, "pids": by_index, "respawned": new["pid"]}
 
 
+# -- phase 11: the port's own cluster ---------------------------------------
+
+# phase 11's directory (git-ignored): `src` holds phase 8's sealed volume,
+# hard-linked before phase 9 drops it; `run` the master's metadata and the
+# two volume servers' stores
+CLUSTER_DIR = os.path.join(ROOT, ".smoke_cluster")
+CLUSTER_SRC = os.path.join(CLUSTER_DIR, "src")
+# bytes written through /dir/assign and POST, at phase 7's size mix
+CLUSTER_ASSIGN_MIB = 64
+# shell.ec_commands.ec_verify's default -windowMB
+SHELL_VERIFY_WINDOW = 4 * MIB
+# volume slots per server: ec.encode spreads the 14 shards one each way
+# in turn only while both servers have free slots
+CLUSTER_MAX_VOLUMES = 20
+
+
+def link_volume(src_dir: str, dst_dir: str, vid: int) -> None:
+    """Hard-link a sealed volume's .dat and .idx into another directory."""
+    os.makedirs(dst_dir, exist_ok=True)
+    for ext in (".dat", ".idx"):
+        os.link(os.path.join(src_dir, str(vid) + ext),
+                os.path.join(dst_dir, str(vid) + ext))
+
+
+def cluster_master_args(directory: str, limit_mb: int) -> list[str]:
+    """The port CLI's `master` command line for phase 11: port 0, the
+    volume size limit (the size the phase's volume was filled to, 1024 MB
+    at full width, so the sealed volume is full and takes no writes), and
+    an unpaced repair
+    budget (-autopilot.mbps 0: the default 16 MB/s would pace a 1 GiB
+    rebuild over a minute; the scrubber runs unpaced too)."""
+    return ["master", "-port", "0", "-mdir", os.path.join(directory, "m"),
+            "-volumeSizeLimitMB", str(limit_mb), "-autopilot.mbps", "0"]
+
+
+def batched_generate_launches(dat_size: int, large_block: int,
+                              small_block: int) -> int:
+    """Launches of pipeline.write_ec_files_batched for one volume: its row
+    batches are queued per buffer length and flushed 8 at a time."""
+    per_len = Counter(buf for _, _, buf, _ in pl._iter_row_batches(
+        dat_size, large_block, small_block, 8 * MIB))
+    return sum(math.ceil(n / 8) for n in per_len.values())
+
+
+def rebuild_launches(shard_size: int) -> int:
+    """Launches of pipeline.rebuild_ec_files: 1 MiB windows, 8 a launch."""
+    return math.ceil(-(-shard_size // VERIFY_WINDOW)
+                     / ecb.DEFAULT_BATCH_WINDOWS)
+
+
+def verify_launches(shard_size: int, window: int) -> int:
+    """Dispatches of EcVolume.verify_parity over `window`-byte windows."""
+    batch = ecb.clamp_batch_windows(ecb.DEFAULT_BATCH_WINDOWS, window,
+                                    gf.TOTAL_SHARDS)
+    return math.ceil(-(-shard_size // window) / batch)
+
+
+def server_layout(seed: int, target: int) -> tuple[int, list[tuple]]:
+    """The .dat size and each needle's (nid, offset, size field) of the
+    volume phase 8 writes from `seed` up to `target` bytes, reckoned
+    without writing it: each record as the server stores a multipart
+    POST (data, flags, name, the part's type unless it is
+    application/octet-stream, a last-modified time)."""
+    from seaweedfs_tpu_torch.storage.needle import LAST_MODIFIED_BYTES
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    pos, out = SUPER_BLOCK_SIZE, []
+    for nid, _, data, name, mime in store_needle_specs(seed, target):
+        kept = b"" if mime == b"application/octet-stream" else mime
+        size = (4 + len(data) + 1 + 1 + len(name)
+                + (1 + len(kept) if kept else 0) + LAST_MODIFIED_BYTES)
+        out.append((nid, pos, size))
+        pos += st.actual_size(size, st.CURRENT_VERSION)
+    return pos, out
+
+
+def cluster_prediction(seed: int, target: int,
+                       lost: tuple = (0, 2, 4, 6)) -> dict:
+    """Phase 11's K1 launches per step for the volume phase 8 writes from
+    `seed` up to `target` bytes, with `lost` the shards of one server
+    deleted before pass B, reckoned on any host from the needle layout
+    (server_layout) and the server's defaults: 1 GiB large and 1 MiB
+    small blocks, 1 MiB recover threshold, the shell's 4 MiB verify
+    windows, the scrubber's 1 MiB windows. The autopilot's rebuild is two
+    rebuild_shard actions, one on each server."""
+    from seaweedfs_tpu_torch.ec.locate import locate_data
+    from seaweedfs_tpu_torch.ec.scrub import Scrubber
+    dat_size, layout = server_layout(seed, target)
+    large, small = pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE
+    shard = sum(buf for _, _, buf, _ in pl._iter_row_batches(
+        dat_size, large, small, 8 * MIB))
+    recovers = 0
+    for _, off, size in layout:
+        for iv in locate_data(large, small, gf.DATA_SHARDS * shard, off,
+                              st.actual_size(size, st.CURRENT_VERSION)):
+            sid, _ = iv.to_shard_and_offset(large, small)
+            recovers += sid in lost and iv.size >= MIB
+    rebuild = rebuild_launches(shard)
+    scrub_batch = ecb.clamp_batch_windows(
+        ecb.DEFAULT_BATCH_WINDOWS, VERIFY_WINDOW, gf.TOTAL_SHARDS,
+        budget=Scrubber.BLOCK_BYTES)
+    verify = verify_launches(shard, SHELL_VERIFY_WINDOW)
+    return {"assign reads": 0,
+            "ec.encode": batched_generate_launches(dat_size, large, small),
+            "pass A": 0, "pass B": recovers, "autopilot": 2 * rebuild,
+            "ec.verify": verify, "ec.verify flipped": verify,
+            "scrub": math.ceil(-(-shard // VERIFY_WINDOW) / scrub_batch)
+            + 2 * gf.TOTAL_SHARDS,
+            "ec.rebuild": rebuild, "ec.decode": rebuild,
+            "decoded reads": 0}
+
+
+# top-level packages no process of the port may load
+FORBIDDEN_PACKAGES = ("jax", "jaxlib", "seaweedfs_tpu")
+
+
+def forbidden_imports(importtime_log: str) -> list[str]:
+    """Modules of jax or of the JAX package in a `python -X importtime`
+    log: every module that process imported is on a line of its own."""
+    out = []
+    for line in importtime_log.splitlines():
+        if line.startswith("import time:"):
+            mod = line.rsplit("|", 1)[-1].strip()
+            if mod.split(".")[0] in FORBIDDEN_PACKAGES:
+                out.append(mod)
+    return out
+
+
+def forbidden_loaded() -> list[str]:
+    """Modules of jax or of the JAX package loaded in this process."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in FORBIDDEN_PACKAGES)
+
+
+def phase_cluster(dev: torch.device, seed: int, target: int,
+                  source_dir: str, *, limit_mb: int, card: str = "",
+                  backend: str = "gpu",
+                  assign_bytes: int = CLUSTER_ASSIGN_MIB * MIB,
+                  parity_sha: dict | None = None) -> dict:
+    """The port's own cluster, no module of seaweedfs_tpu in any of its
+    processes: a port master (cli.start_master) and two port volume
+    servers (cli.start_volume, -ecBackend <backend>) in this process, the
+    port's shell (in process, and in a subprocess through `python -m
+    seaweedfs_tpu_torch.cli shell -c`). Phase 8's sealed volume (made
+    from `seed` up to `target` bytes, in `source_dir`) is the EC volume;
+    `assign_bytes` more go through /dir/assign and POST, under a master
+    whose -volumeSizeLimitMB is `limit_mb`, at most the sealed volume's
+    size, so that no assign lands in it. Steps: write;
+    ec.encode spreading the shards over both servers (parity sha256-equal
+    to `parity_sha`, phase 8's, when given); every needle through
+    /dir/lookup and GET intact and with 4 shards of one server lost; a
+    forced autopilot cycle that rebuilds them with remote sources; ec.verify
+    clean and after one flipped byte of .ec12, and a forced scrub that
+    localizes it; ec.rebuild of 4 lost shards; ec.decode back to a normal
+    volume whose .dat is sha256-equal to the original. Returns the launch
+    counts and what the geometry and the reports say they must be."""
+    import asyncio
+    run_dir = os.path.join(CLUSTER_DIR, "run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    for d in ("m", "v0", "v1"):
+        os.makedirs(os.path.join(run_dir, d))
+    link_volume(source_dir, os.path.join(run_dir, "v0"), SERVER_VID)
+    dat = os.path.join(source_dir, f"{SERVER_VID}.dat")
+    check(os.path.getsize(dat) >= limit_mb * MIB,
+          f"{dat} holds {os.path.getsize(dat)} bytes, under the master's "
+          f"{limit_mb} MB limit: /dir/assign could place needles in it")
+    try:
+        return asyncio.run(_drive_cluster(dev, seed, target, run_dir,
+                                          card, backend, assign_bytes,
+                                          parity_sha, limit_mb))
+    finally:
+        shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+
+
+async def _drive_cluster(dev: torch.device, seed: int, target: int,
+                         run_dir: str, card: str, backend: str,
+                         assign_bytes: int, parity_sha: dict | None,
+                         limit_mb: int) -> dict:
+    import asyncio
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.shell.runner import dispatch
+    from seaweedfs_tpu_torch.util import crc32c
+
+    tag = f"[{card}]" if card else ""
+    launches, expected, timing = {}, {}, {}
+    vid = SERVER_VID
+    parser = cli.build_parser()
+
+    async def counted(step: str, coro):
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = await coro
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    def in_thread(fn, *args):
+        return asyncio.get_running_loop().run_in_executor(None, fn, *args)
+
+    master, mrec = await cli.start_master(parser.parse_args(
+        cluster_master_args(run_dir, limit_mb)))
+    servers, recs = [], [mrec]
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    try:
+        for i in range(2):
+            vs, rec = await cli.start_volume(parser.parse_args(
+                server_args(backend, os.path.join(run_dir, f"v{i}"),
+                            master=master.url)
+                + ["-max", str(CLUSTER_MAX_VOLUMES)]))
+            servers.append(vs)
+            recs.append(rec)
+            check(await vs.heartbeat_once(),
+                  f"volume server {vs.url} not registered with the master")
+        by_url = {vs.url: vs for vs in servers}
+
+        async def post(url: str, path: str, **params) -> dict:
+            async with http.post(f"http://{url}{path}", params=params) as r:
+                body = await r.json()
+                check(r.status == 200, f"POST {url}{path} {params}: "
+                      f"{r.status} {body}")
+                return body
+
+        async def lookup(v: int) -> str:
+            async with http.get(f"http://{master.url}/dir/lookup",
+                                params={"volumeId": str(v)}) as r:
+                body = await r.json()
+                check(r.status == 200 and body.get("locations"),
+                      f"/dir/lookup {v}: {r.status} {body}")
+                return body["locations"][0]["url"]
+
+        async def read_all(fids: list[tuple[str, bytes]]) -> list[float]:
+            """Every needle through /dir/lookup and GET, byte- and
+            CRC-equal (the ETag is the data's CRC)."""
+            lat = []
+            for fid, data in fids:
+                t0 = time.perf_counter()
+                url = await lookup(int(fid.split(",")[0]))
+                async with http.get(f"http://{url}/{fid}") as r:
+                    body = await r.read()
+                    status, etag = r.status, r.headers.get("ETag")
+                lat.append(time.perf_counter() - t0)
+                check(status == 200 and body == data,
+                      f"GET {fid} from {url}: status {status}, "
+                      f"{len(body)} bytes, expected {len(data)}")
+                check(etag == f'"{crc32c.crc32c(data) & 0xFFFFFFFF:08x}"',
+                      f"GET {fid}: ETag {etag} is not the data's CRC")
+            return lat
+
+        async def shell(command: str):
+            """One line through the port's shell in this process."""
+            async with CommandEnv(master.url, http) as env:
+                return await dispatch(env, command)
+
+        async def shell_cli(command: str):
+            """One line through `python -m seaweedfs_tpu_torch.cli shell
+            -c` in a subprocess; -X importtime lists every module it
+            imported, none of which may be jax's or seaweedfs_tpu's."""
+            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-X", "importtime", "-m",
+                "seaweedfs_tpu_torch.cli", "shell", "-master", master.url,
+                "-c", command, cwd=ROOT, env=env,
+                stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            try:
+                out, err = await asyncio.wait_for(proc.communicate(), 600)
+            except BaseException:
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+                raise
+            err_text = err.decode(errors="replace")
+            check(proc.returncode == 0, f"shell -c {command!r}: exit "
+                  f"{proc.returncode}: {err_text[-2000:]}")
+            bad = forbidden_imports(err_text)
+            check(bad == [], f"shell -c {command!r} imported {bad[:5]}")
+            check("import time:" in err_text,
+                  "the shell subprocess printed no -X importtime log")
+            return json.loads(out)
+
+        def holders() -> dict[int, list]:
+            """shard id -> the servers that mount it."""
+            out: dict[int, list] = {}
+            for vs in servers:
+                ev = vs.store.ec_volumes.get(vid)
+                for sid in (sorted(ev.shards) if ev is not None else []):
+                    out.setdefault(sid, []).append(vs)
+            return out
+
+        def base_of(vs) -> str:
+            return os.path.join(vs.store.dirs[0], str(vid))
+
+        def shard_path(vs, sid: int) -> str:
+            return base_of(vs) + pl.to_ext(sid)
+
+        async def lose(vs, sids: list[int]) -> None:
+            arg = ",".join(map(str, sids))
+            await post(vs.url, "/admin/ec/unmount", volume=str(vid),
+                       shards=arg)
+            await post(vs.url, "/admin/ec/delete_shards", volume=str(vid),
+                       shards=arg)
+            check(not any(os.path.exists(shard_path(vs, s)) for s in sids),
+                  f"lost shard files {sids} still on {vs.url}")
+
+        def drop_caches() -> None:
+            for vs in servers:
+                vs.store.drop_cached_volume(vid)
+                vs.store.ec_recover_cache.drop_volume(vid)
+
+        # -- 1. write through the master's assign path
+        src_base = os.path.join(run_dir, "v0", str(vid))
+        dat_size = os.path.getsize(src_base + ".dat")
+        dat_sha = await in_thread(sha_file, src_base + ".dat")
+        volume, nids = [], []
+        for nid, cookie, data, _, _ in store_needle_specs(seed, target):
+            volume.append((f"{vid},{nid:x}{cookie:08x}", data))
+            nids.append(nid)
+        assigned, written = [], 0
+        t0 = time.perf_counter()
+        for _, _, data, name, mime in store_needle_specs(seed + 11,
+                                                         assign_bytes):
+            async with http.get(f"http://{master.url}/dir/assign") as r:
+                a = await r.json()
+            check(r.status == 200 and "fid" in a, f"/dir/assign: {a}")
+            form = aiohttp.FormData()
+            form.add_field("file", data, filename=name.decode(),
+                           content_type=mime.decode())
+            async with http.post(f"http://{a['url']}/{a['fid']}",
+                                 data=form) as r:
+                check(r.status == 201, f"POST {a['fid']}: {r.status} "
+                      f"{await r.text()}")
+            assigned.append((a["fid"], data))
+            written += len(data)
+        timing["write"] = time.perf_counter() - t0
+        check(written >= assign_bytes, f"{written} bytes through assign")
+        check(all(int(fid.split(",")[0]) != vid for fid, _ in assigned)
+              and os.path.getsize(src_base + ".dat") == dat_size,
+              f"/dir/assign placed needles in the sealed volume {vid}")
+        await counted("assign reads", read_all(assigned))
+        expected["assign reads"] = 0
+        check(await lookup(vid) == servers[0].url,
+              f"volume {vid} not located on {servers[0].url}")
+        print(f"  write: {len(assigned)} needles, {written} bytes through "
+              f"/dir/assign and POST in {timing['write']:.3f} s "
+              f"({written / timing['write'] / 1e6:.1f} MB/s), read back "
+              f"through /dir/lookup in {timing['assign reads']:.3f} s; "
+              f"volume {vid}: {len(volume)} needles, .dat {dat_size} "
+              f"bytes {tag}")
+
+        # -- 2. ec.encode through the shell's CLI in a subprocess
+        store0 = servers[0].store
+        res = await counted("ec.encode",
+                            shell_cli(f"ec.encode -volumeId {vid}"))
+        expected["ec.encode"] = batched_generate_launches(
+            dat_size, store0.ec_large_block, store0.ec_small_block)
+        check(isinstance(res, list) and len(res) == 1
+              and res[0]["volume"] == vid, f"ec.encode answered {res}")
+        spread = {u: sorted(s) for u, s in res[0]["assignments"].items()}
+        check(len(spread) == 2 and set(spread) == set(by_url)
+              and sorted(sum(spread.values(), [])) ==
+              list(range(gf.TOTAL_SHARDS)),
+              f"ec.encode spread the shards as {spread}")
+        for vs in servers:
+            await vs.heartbeat_once()
+        where = holders()
+        check({sid: [vs.url for vs in hs] for sid, hs in where.items()}
+              == {sid: [u] for u, ss in spread.items() for sid in ss},
+              f"mounted shards {where} differ from ec.encode's {spread}")
+        check(not any(vid in vs.store.volumes for vs in servers),
+              "the normal volume is still mounted after ec.encode")
+        orig_sha = {sid: await in_thread(sha_file, shard_path(hs[0], sid))
+                    for sid, hs in where.items()}
+        if parity_sha is not None:
+            check({s: orig_sha[s] for s in parity_sha} == parity_sha,
+                  "ec.encode's parity differs from phase 8's (sha256)")
+        shard_size = servers[0].store.ec_volumes[vid].shard_size
+        print(f"  ec.encode -volumeId {vid} (shell -c in a subprocess, no "
+              f"jax or seaweedfs_tpu imported): {timing['ec.encode']:.3f} "
+              f"s, shards {spread}, shard size {shard_size} {tag}")
+
+        # -- 3. GETs intact, then with 4 shards of one server lost
+        lat_a = await counted("pass A", read_all(volume))
+        expected["pass A"] = 0
+        victim = where[0][0]
+        other = next(vs for vs in servers if vs is not victim)
+        lost = spread[victim.url][:4]
+        await lose(victim, lost)
+        drop_caches()
+        present = next(s for s in range(gf.TOTAL_SHARDS) if s not in lost)
+        ivs = lost_intervals(base_of(holders()[present][0]), lost,
+                             store0.ec_large_block, store0.ec_small_block,
+                             nids)
+        for vs in servers:
+            check_cache_cold(vs.store, dict.fromkeys(nids), ivs, vid)
+        threshold = other.store.ec_volumes[vid].small_recover_bytes
+        host_n, card_n = split_at(ivs, threshold)
+        lat_b = await counted("pass B", read_all(volume))
+        expected["pass B"] = card_n
+        print(f"  pass B: shards {lost} lost on {victim.url}, "
+              f"{len(ivs)} intervals on them: {host_n} under the "
+              f"{threshold}-byte threshold (host), {card_n} at or above "
+              f"it (the EC engine); the rest gathered from the other "
+              f"server {tag}")
+
+        # -- 4. the autopilot repairs the volume with remote sources
+        rep = await counted("autopilot", post(master.url, "/debug/autopilot",
+                                              run="1"))
+        cycle = rep["cycle"]
+        done = cycle["executed"]
+        check(done and all(r["status"] == "ok" for r in done)
+              and sorted(s for r in done for s in r["action"]["shards"])
+              == lost and all(r["action"]["kind"] == "rebuild_shard"
+                              for r in done),
+              f"autopilot cycle executed {done} (deferred "
+              f"{cycle['deferred']}), expected a rebuild of {lost}")
+        check(all(any(u != r["target"] for _, u in r["action"]["sources"])
+                  for r in done),
+              "an autopilot rebuild had no remote source")
+        rebuild_n = rebuild_launches(shard_size)
+        expected["autopilot"] = len(done) * rebuild_n
+        where = holders()
+        check(sorted(where) == list(range(gf.TOTAL_SHARDS)),
+              f"after the autopilot cycle shards {sorted(where)} mounted")
+        for sid in lost:
+            check(await in_thread(sha_file, shard_path(where[sid][0], sid))
+                  == orig_sha[sid], f"autopilot rebuilt shard {sid} "
+                  f"differs from the original (sha256)")
+        print(f"  autopilot (POST /debug/autopilot?run=1): "
+              f"{timing['autopilot']:.3f} s, {len(done)} rebuild_shard "
+              f"actions {[(r['target'], r['action']['shards']) for r in done]}"
+              f", each gathering remote sources; rebuilt shards "
+              f"sha256-equal {tag}")
+
+        # -- 5. ec.verify clean, then one flipped byte of .ec12; the
+        # scrub of shard 0's holder localizes it. First every server's
+        # EC location cache must see the repaired shards: after a failed
+        # fetch it re-resolves at most once per FRESH_S (11 s), the
+        # reference's staleness window, and until then ec.verify and the
+        # scrub would count the re-hosted shards as missing
+        t0 = time.perf_counter()
+        for vs in servers:
+            while True:
+                vs._ec_locations.invalidate(vid)
+                locs = await in_thread(vs._ec_locations.get, vid) or {}
+                if all(locs.get(str(s)) for s in range(gf.TOTAL_SHARDS)):
+                    break
+                check(time.perf_counter() - t0 < 60, f"{vs.url} never saw "
+                      f"every shard of volume {vid} located: {locs}")
+                await asyncio.sleep(0.5)
+        timing["locations"] = time.perf_counter() - t0
+        reports = await counted("ec.verify", shell(f"ec.verify -volumeId "
+                                                   f"{vid}"))
+        check(len(reports) == 1 and reports[0]["bad_windows"] == []
+              and reports[0]["missing_shards"] == [],
+              f"ec.verify of the repaired volume: {reports}")
+        expected["ec.verify"] = verify_launches(shard_size,
+                                                SHELL_VERIFY_WINDOW)
+        n4 = -(-shard_size // SHELL_VERIFY_WINDOW)
+        flip_at = (n4 // 3) * SHELL_VERIFY_WINDOW + 777
+        flip_byte(shard_path(where[SCRUB_SHARD][0], SCRUB_SHARD), flip_at)
+        reports = await counted("ec.verify flipped",
+                                shell(f"ec.verify -volumeId {vid}"))
+        check(len(reports) == 1 and reports[0]["bad_windows"]
+              == [(n4 // 3) * SHELL_VERIFY_WINDOW],
+              f"one flipped byte of .ec{SCRUB_SHARD} at {flip_at}: "
+              f"ec.verify reported {reports}")
+        expected["ec.verify flipped"] = expected["ec.verify"]
+        owner = where[0][0]
+        scrub = await counted("scrub", post(owner.url, "/debug/scrub",
+                                           run="1"))
+        found = [(w["volume"], w["offset"], w["shards"])
+                 for w in scrub["cycle"]["corrupt_windows"]]
+        flip_w = flip_at // VERIFY_WINDOW * VERIFY_WINDOW
+        check(found == [(vid, flip_w, [SCRUB_SHARD])]
+              and scrub["cycle"]["errors"] == [],
+              f"scrub of {owner.url} found {found} (errors "
+              f"{scrub['cycle']['errors']}), expected the window at "
+              f"{flip_w} localized to shard {SCRUB_SHARD}")
+        # 14 hypotheses, each a reconstruct and a re-verify
+        expected["scrub"] = scrub["cycle"]["dispatches"] \
+            + 2 * gf.TOTAL_SHARDS
+        print(f"  ec.verify: clean in {timing['ec.verify']:.3f} s; after "
+              f"a flipped byte of .ec{SCRUB_SHARD} the window at "
+              f"{(n4 // 3) * SHELL_VERIFY_WINDOW} in "
+              f"{timing['ec.verify flipped']:.3f} s; /debug/scrub?run=1 on "
+              f"shard 0's holder localized it to shard {SCRUB_SHARD} in "
+              f"{timing['scrub']:.3f} s {tag}")
+
+        # -- 6. ec.rebuild of the rotten .ec12 and 3 shards of the other
+        # server
+        holder12 = where[SCRUB_SHARD][0]
+        other = next(vs for vs in servers if vs is not holder12)
+        lost2 = [s for s, hs in sorted(where.items())
+                 if hs[0] is other][:3]
+        await lose(holder12, [SCRUB_SHARD])
+        await lose(other, lost2)
+        lost2 = sorted(lost2 + [SCRUB_SHARD])
+        results = await counted("ec.rebuild", shell("ec.rebuild -force"))
+        check(len(results) == 1 and results[0].get("rebuilt") == lost2,
+              f"ec.rebuild of {lost2}: {results}")
+        expected["ec.rebuild"] = rebuild_n
+        where = holders()
+        check(sorted(where) == list(range(gf.TOTAL_SHARDS)),
+              f"after ec.rebuild shards {sorted(where)} mounted")
+        for sid in lost2:
+            check(await in_thread(sha_file, shard_path(where[sid][0], sid))
+                  == orig_sha[sid], f"ec.rebuild's shard {sid} differs "
+                  f"from the original (sha256)")
+        print(f"  ec.rebuild of {lost2} on {results[0]['node']}: "
+              f"{timing['ec.rebuild']:.3f} s, sha256-equal to the "
+              f"originals (the flipped .ec{SCRUB_SHARD} repaired) {tag}")
+
+        # -- 7. ec.decode (through the CLI) with data shard 0 lost: the
+        # target rebuilds it, then reassembles the .dat
+        await lose(where[0][0], [0])
+        res = await counted("ec.decode",
+                            shell_cli(f"ec.decode -volumeId {vid}"))
+        check(len(res) == 1 and "error" not in res[0],
+              f"ec.decode answered {res}")
+        expected["ec.decode"] = rebuild_n
+        target_vs = by_url[res[0]["node"]]
+        for vs in servers:
+            await vs.heartbeat_once()
+        check(vid in target_vs.store.volumes and
+              not any(vid in vs.store.ec_volumes for vs in servers),
+              "after ec.decode the volume is not a normal volume only")
+        for vs in servers:
+            check(not any(os.path.exists(shard_path(vs, s))
+                          for s in range(gf.TOTAL_SHARDS)),
+                  f"EC shard files left on {vs.url} after ec.decode")
+        decoded = base_of(target_vs) + ".dat"
+        check(await in_thread(sha_file, decoded) == dat_sha,
+              "the decoded .dat differs from the original (sha256)")
+        await counted("decoded reads", read_all(volume + assigned))
+        expected["decoded reads"] = 0
+        print(f"  ec.decode (shell -c in a subprocess) on {target_vs.url}: "
+              f"{timing['ec.decode']:.3f} s, .dat sha256-equal to the "
+              f"original; every needle read back through /dir/lookup in "
+              f"{timing['decoded reads']:.3f} s {tag}")
+        for name, lat in (("A", lat_a), ("B", lat_b)):
+            print(f"  GET pass {name} through /dir/lookup: {len(lat)} "
+                  f"needles in {sum(lat):.3f} s, latency p50 "
+                  f"{percentile_ms(lat, 50):.4f} ms, p99 "
+                  f"{percentile_ms(lat, 99):.4f} ms {tag}")
+        print(f"  wall seconds per step: "
+              f"{ {k: round(v, 4) for k, v in timing.items()} } {tag}")
+        print(f"  cluster path kernel launches per step: {launches} {tag}")
+    finally:
+        await http.close()
+        for vs in servers:
+            await vs.stop()
+        await master.stop()
+        for rec in recs:
+            if rec is not None:
+                rec.cancel()
+    return {"launches": launches, "expected": expected, "timing": timing,
+            "needles": len(volume), "intervals": len(ivs),
+            "split": (host_n, card_n), "lost": lost, "lost2": lost2}
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2394,6 +2975,9 @@ def main(argv=None) -> int:
     server_launches = check_store_counts(server, "server path")
     print(f"  launches on the server path: {server_launches}, each step's "
           f"equal to its expected count {server['expected']}")
+    # phase 11's EC volume: phase 8's, before phase 9 drops its links
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    link_volume(MXU_DIR, CLUSTER_SRC, SERVER_VID)
 
     print("== phase 9: the volume server's MXU method over HTTP "
           "(SWTPU_TORCH_EC_METHOD=mxu: generate_batch, degraded GETs, "
@@ -2410,12 +2994,30 @@ def main(argv=None) -> int:
           "each with its own CUDA context, one shared port)")
     phase_workers(args.seed, args.workers_mib * MIB, card)
 
+    print("== phase 11: the port's own cluster (master, two volume "
+          "servers, shell, autopilot): ec.encode, degraded GETs, "
+          "autopilot repair, ec.verify, ec.rebuild, ec.decode")
+    cluster = phase_cluster(dev, args.seed, args.server_mib * MIB,
+                            CLUSTER_SRC, limit_mb=args.server_mib,
+                            card=card, parity_sha=server["parity_sha"])
+    cluster_launches = check_store_counts(cluster, "cluster path")
+    predicted = cluster_prediction(args.seed, args.server_mib * MIB)
+    check(cluster["launches"] == predicted,
+          f"phase 11 launched K1 {cluster['launches']} times per step; "
+          f"the reckoning from the seed alone is {predicted}")
+    bad = forbidden_loaded()
+    check(bad == [], f"this process loaded {bad[:5]}")
+    print(f"  launches on the cluster path: {cluster_launches}, each "
+          f"step's equal to its expected count {cluster['expected']} and "
+          f"to the reckoning from the seed alone; no module of jax or "
+          f"seaweedfs_tpu in this process")
+
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
         "launches": main_launches + store_launches + server_launches
-        + mxu_k1,
+        + mxu_k1 + cluster_launches,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,18 +1,24 @@
-"""`weed`-style CLI of the PyTorch port: the volume server and the
-offline volume tools.
+"""`weed`-style CLI of the PyTorch port: the master, the volume server,
+the admin shell and the offline volume tools.
 
+    python -m seaweedfs_tpu_torch.cli master -port 9333 [-mdir D] \\
+        [-peers H:P,...] [-workers N] [-volumeSizeLimitMB 30000] ...
     python -m seaweedfs_tpu_torch.cli volume -port 8080 -dir ./data \\
         -master 127.0.0.1:9333 [-ecBackend auto|gpu|cpu] [-workers N] ...
+    python -m seaweedfs_tpu_torch.cli shell -master 127.0.0.1:9333 \\
+        [-c 'ec.encode -collection x']
     python -m seaweedfs_tpu_torch.cli compact|fix|export -dir D -volumeId N
     python -m seaweedfs_tpu_torch.cli backup -dir D -volumeId N -server H:P
 
-The port of seaweedfs_tpu/cli.py's `volume`, `backup`, `fix`, `export`
-and `compact` subcommands (their flags, the runners and the process
-set-up of `main`, with the `-workers N` supervisor). The other
-subcommands are not ported yet. Start-up of one volume server process is
-split out as `start_volume(args)`, a coroutine that returns the started
-server and its flight recorder, so a program can drive the same entry
-point in process (chip_smoke.py does).
+The port of seaweedfs_tpu/cli.py's `master`, `volume`, `shell`,
+`backup`, `fix`, `export` and `compact` subcommands (their flags, the
+runners and the process set-up of `main`, with the `-workers N`
+supervisor and master.toml's maintenance scripts and sequencer). The
+other subcommands are not ported yet. Start-up of one master or volume
+server process is split out as `start_master(args)` and
+`start_volume(args)`, coroutines that return the started server and its
+flight recorder, so a program can drive the same entry points in process
+(chip_smoke.py does).
 
 `-ecBackend` picks the EC engine through SWTPU_TORCH_EC_BACKEND (not the
 JAX package's SWTPU_EC_BACKEND): `gpu` is the CUDA kernel, `cpu` its
@@ -133,6 +139,87 @@ def build_parser() -> argparse.ArgumentParser:
                                  description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    m = sub.add_parser("master", help="start a master server")
+    _add_common(m)
+    _add_workers(m)
+    m.add_argument("-port", type=int, default=9333)
+    m.add_argument("-volumeSizeLimitMB", type=int, default=30_000)
+    m.add_argument("-defaultReplication", default="000")
+    m.add_argument("-pulseSeconds", type=float, default=5.0)
+    m.add_argument("-jwtKey", default="")
+    m.add_argument("-peers", default="",
+                   help="comma-separated peer masters host:port "
+                        "(enables the raft quorum: leader election, "
+                        "replicated fid/volume-id allocation, follower "
+                        "307-redirect-to-leader)")
+    m.add_argument("-raft.timeout", dest="raft_timeout",
+                   default="1.0,2.0",
+                   help="election timeout range seconds 'min,max' "
+                        "(randomized per follower; failover completes "
+                        "within ~2 timeouts of a leader death)")
+    m.add_argument("-raft.pulse", dest="raft_pulse", type=float,
+                   default=0.3,
+                   help="leader AppendEntries heartbeat cadence "
+                        "seconds (the lease window derives from the "
+                        "election timeout, not this)")
+    m.add_argument("-metricsGateway", default="",
+                   help="prometheus push-gateway host:port")
+    m.add_argument("-sequencer", default=None,
+                   help="file-id allocator: memory | file:<path> | "
+                        "etcd:<host:port> (default: master.toml "
+                        "[master.sequencer], else memory)")
+    m.add_argument("-mdir", default="",
+                   help="master metadata dir (persists election "
+                        "term/vote across restarts)")
+    m.add_argument("-garbageThreshold", type=float, default=0.3,
+                   help="auto-vacuum when a volume's garbage ratio "
+                        "exceeds this")
+    m.add_argument("-maintenanceIntervalS", type=float, default=900.0,
+                   help="auto-vacuum cadence seconds; 0 disables")
+    m.add_argument("-whiteList", default="",
+                   help="comma-separated IPs/CIDRs allowed to use the "
+                        "API; empty = no limit (guard.go). Heartbeating "
+                        "volume servers are auto-admitted; with -peers, "
+                        "follower control routes 307-redirect so the "
+                        "CLIENT IP is judged on the leader — only "
+                        "/submit still proxies from peer master IPs")
+    m.add_argument("-volumePreallocate", action="store_true",
+                   help="preallocate disk space for grown volumes")
+    m.add_argument("-autopilot.interval", dest="autopilot_interval",
+                   type=float, default=0.0,
+                   help="autopilot maintenance-plane cycle cadence "
+                        "seconds (leader-only observe->plan->execute: "
+                        "auto-rebuild lost/rotten EC shards, "
+                        "re-replicate, vacuum, cold-tier); 0 disables "
+                        "the loop (POST /debug/autopilot?run=1 still "
+                        "forces one cycle)")
+    m.add_argument("-autopilot.mbps", dest="autopilot_mbps",
+                   type=float, default=16.0,
+                   help="cluster-wide repair-bandwidth token bucket "
+                        "(MB/s of estimated repair bytes); <=0 "
+                        "unpaced")
+    m.add_argument("-autopilot.dryrun", dest="autopilot_dryrun",
+                   action="store_true",
+                   help="plan, journal and report the exact action "
+                        "ledger live mode would execute — but execute "
+                        "nothing")
+    m.add_argument("-autopilot.concurrency",
+                   dest="autopilot_concurrency", type=int, default=2,
+                   help="maintenance actions in flight at once")
+    m.add_argument("-autopilot.tier", dest="autopilot_tier",
+                   default="",
+                   help="tier backend id (e.g. s3.default) for "
+                        "tier_seal actions: sealed still-local "
+                        "volumes are shipped to it; empty disables "
+                        "cold-tiering actions")
+    m.add_argument("-introspect.deadline", dest="introspect_deadline",
+                   type=float, default=3.0,
+                   help="per-node deadline seconds for the "
+                        "/debug/cluster/* fan-out: a member that "
+                        "doesn't answer within it degrades to a "
+                        "missing_node row instead of stalling the "
+                        "assembled view")
+
     v = sub.add_parser("volume", help="start a volume server")
     _add_common(v)
     _add_workers(v)
@@ -239,6 +326,12 @@ def build_parser() -> argparse.ArgumentParser:
     co.add_argument("-dir", default=".")
     co.add_argument("-volumeId", type=int, required=True)
     co.add_argument("-collection", default="")
+
+    sh = sub.add_parser("shell", help="admin shell (interactive or -c)")
+    _add_common(sh)
+    sh.add_argument("-c", dest="command", default="",
+                    help="run one command and exit, e.g. 'ec.encode "
+                         "-collection x'")
     return ap
 
 
@@ -368,25 +461,27 @@ async def _serve_until_interrupt(*servers) -> None:
             glog.warning("shutdown of %s: %s", type(srv).__name__, e)
 
 
-def _worker_state_dir(args) -> str:
+def _worker_state_dir(args, kind: str) -> str:
     if args.workerStateDir:
         return args.workerStateDir
-    return os.path.join(args.dir.split(",")[0], ".workers")
+    if kind == "volume":
+        return os.path.join(args.dir.split(",")[0], ".workers")
+    return os.path.join(args.mdir or ".", ".workers")
 
 
-async def _run_worker_supervisor(args) -> None:
-    """Parent of `volume -workers N`: mint the launch token, spawn the
-    worker processes (this module's command line + -workerIndex i),
-    restart crashed ones. No socket and no CUDA context live here — see
-    server/workers.py."""
+async def _run_worker_supervisor(args, kind: str) -> None:
+    """Parent of `master|volume -workers N`: mint the launch token,
+    spawn the worker processes (this module's command line +
+    -workerIndex i), restart crashed ones. No socket and no CUDA context
+    live here — see server/workers.py."""
     import secrets
     from .server.workers import (Supervisor, WORKER_TOKEN_ENV,
                                  fresh_state_dir)
     if args.port == 0:
-        raise SystemExit("volume -workers needs an explicit -port "
-                         "(the workers share it via SO_REUSEPORT)")
+        raise SystemExit(f"{kind} -workers needs an explicit -port "
+                         f"(the workers share it via SO_REUSEPORT)")
     state_dir = await tracing.run_in_executor(
-        fresh_state_dir, _worker_state_dir(args))
+        fresh_state_dir, _worker_state_dir(args, kind))
     env = dict(os.environ)
     env[WORKER_TOKEN_ENV] = env.get(WORKER_TOKEN_ENV) \
         or secrets.token_hex(16)
@@ -400,7 +495,7 @@ async def _run_worker_supervisor(args) -> None:
 
     sup = Supervisor(build_argv, args.workers, env=env)
     await sup.start()
-    print(f"volume supervisor: {args.workers} workers sharing port "
+    print(f"{kind} supervisor: {args.workers} workers sharing port "
           f"{args.port} (state: {state_dir})", flush=True)
     from .util.signals import wait_for_interrupt
     await wait_for_interrupt()
@@ -430,10 +525,130 @@ def _watch_parent() -> None:
     task.add_done_callback(_BACKGROUND_TASKS.discard)
 
 
-def _make_worker_ctx(args):
+def _make_worker_ctx(args, kind: str):
     from .server.workers import WorkerContext
     return WorkerContext(args.workerIndex, args.workers, args.port,
-                         _worker_state_dir(args))
+                         _worker_state_dir(args, kind))
+
+
+def _load_master_toml() -> dict:
+    """Discovered master.toml: [master.maintenance] scripts +
+    sleep_minutes and [master.sequencer] type (scaffold.go:337-371
+    semantics)."""
+    found = _find_config_toml("master")
+    if found is None:
+        return {}
+    path, cfg = found
+    out = {}
+    maint = cfg.get("master", {}).get("maintenance", {})
+    if maint.get("scripts"):
+        out["admin_scripts"] = [
+            ln.strip() for ln in maint["scripts"].splitlines()
+            if ln.strip() and not ln.strip().startswith("#")]
+    if "sleep_minutes" in maint:
+        out["admin_scripts_interval_s"] = \
+            float(maint["sleep_minutes"]) * 60
+    seq = cfg.get("master", {}).get("sequencer", {})
+    if seq.get("type") and seq["type"] != "memory":
+        val = seq["type"]
+        out["sequencer"] = (val if ":" in val
+                            else f"{val}:{seq.get('path', '')}")
+    from .util import glog
+    glog.info("master config loaded from %s", path)
+    return out
+
+
+async def start_master(args):
+    """Start the master process of parsed `master` arguments (the
+    primary of a -workers fleet when -workerIndex is 0); returns
+    (server, recorder handle or None). The caller stops the server and
+    cancels the recorder."""
+    from .master.server import MasterServer
+    from .stats import introspect, timeline
+    worker_ctx = None
+    if args.workerIndex == 0:
+        _watch_parent()
+        worker_ctx = _make_worker_ctx(args, "master")
+    introspect.init(args.introspect_deadline)
+    toml_cfg = await tracing.run_in_executor(_load_master_toml)
+    try:
+        lo, _, hi = args.raft_timeout.partition(",")
+        election_timeout = (float(lo), float(hi or lo))
+    except ValueError:
+        raise SystemExit(f"-raft.timeout {args.raft_timeout!r}: "
+                         f"want 'min,max' seconds") from None
+    # ctor makedirs -mdir; keep daemon construction off the loop —
+    # under -workers respawn this loop is already serving
+    m = await tracing.run_in_executor(lambda: MasterServer(
+        ip=args.ip, port=args.port,
+        volume_size_limit_mb=args.volumeSizeLimitMB,
+        default_replication=args.defaultReplication,
+        pulse_seconds=args.pulseSeconds, jwt_key=args.jwtKey,
+        peers=[p.strip() for p in args.peers.split(",")
+               if p.strip()],
+        election_timeout=election_timeout,
+        election_pulse=args.raft_pulse,
+        # explicit CLI flag beats discovered config (None = flag not
+        # given, so even an explicit `-sequencer memory` overrides a
+        # master.toml sequencer)
+        sequencer=(args.sequencer if args.sequencer is not None
+                   else toml_cfg.get("sequencer", "memory")),
+        meta_dir=args.mdir,
+        garbage_threshold=args.garbageThreshold,
+        maintenance_interval_s=args.maintenanceIntervalS,
+        admin_scripts=toml_cfg.get("admin_scripts"),
+        admin_scripts_interval_s=toml_cfg.get(
+            "admin_scripts_interval_s", 17 * 60.0),
+        white_list=parse_white_list(args.whiteList),
+        volume_preallocate=args.volumePreallocate,
+        autopilot_interval_s=args.autopilot_interval,
+        autopilot_mbps=args.autopilot_mbps,
+        autopilot_dryrun=args.autopilot_dryrun,
+        autopilot_concurrency=args.autopilot_concurrency,
+        autopilot_tier_backend=args.autopilot_tier,
+        worker_ctx=worker_ctx))
+    await m.start()
+    return m, timeline.start_recorder()
+
+
+async def _run_master(args) -> None:
+    if args.workers > 1 and args.workerIndex < 0:
+        await _run_worker_supervisor(args, "master")
+        return
+    if args.workerIndex > 0:
+        # assign accelerator: shares the port, leases ids, proxies cold
+        from .server.workers import AssignAccelerator
+        from .stats import timeline
+        _watch_parent()
+        acc = AssignAccelerator(
+            args.ip, args.port, _make_worker_ctx(args, "master"),
+            white_list=parse_white_list(args.whiteList),
+            jwt_key=args.jwtKey,
+            default_replication=args.defaultReplication)
+        await acc.start()
+        rec = timeline.start_recorder()
+        print(f"master assign worker {args.workerIndex} on {acc.url}",
+              flush=True)
+        try:
+            await _serve_until_interrupt(acc)
+        finally:
+            if rec is not None:
+                rec.cancel()
+        return
+    m, rec = await start_master(args)
+    push_task = None
+    if args.metricsGateway:
+        from .stats.metrics import push_loop
+        push_task = asyncio.create_task(
+            push_loop(args.metricsGateway, "master"))
+    print(f"master listening on {m.url}", flush=True)
+    try:
+        await _serve_until_interrupt(m)
+    finally:
+        if push_task is not None:
+            push_task.cancel()
+        if rec is not None:
+            rec.cancel()
 
 
 async def start_volume(args):
@@ -447,7 +662,7 @@ async def start_volume(args):
     worker_ctx = None
     if args.workerIndex >= 0:
         _watch_parent()
-        worker_ctx = _make_worker_ctx(args)
+        worker_ctx = _make_worker_ctx(args, "volume")
     dirs = args.dir.split(",")
     maxes = [int(x) for x in args.max.split(",")]
     if len(maxes) == 1:
@@ -491,7 +706,7 @@ async def start_volume(args):
 
 async def _run_volume(args) -> None:
     if args.workers > 1 and args.workerIndex < 0:
-        await _run_worker_supervisor(args)
+        await _run_worker_supervisor(args, "volume")
         return
     vs, rec = await start_volume(args)
     dirs = args.dir.split(",")
@@ -508,6 +723,36 @@ async def _run_volume(args) -> None:
     finally:
         if rec is not None:
             rec.cancel()
+
+
+async def _run_shell(args) -> None:
+    from .shell.env import CommandEnv
+    from .shell.runner import dispatch, run_command, HELP
+    if args.command:
+        await run_command(args.master, args.command)
+        return
+    print("seaweedfs_tpu_torch shell; 'help' for commands, 'exit' to quit")
+    # one env for the whole session so fs.cd working-directory state
+    # carries across commands (shell_liner.go keeps one CommandEnv)
+    async with CommandEnv(args.master) as env:
+        while True:
+            try:
+                line = await tracing.run_in_executor(input, "> ")
+            except (EOFError, KeyboardInterrupt):
+                break
+            line = line.strip()
+            if line in ("exit", "quit"):
+                break
+            if line == "help":
+                print(HELP)
+                continue
+            if line:
+                try:
+                    res = await dispatch(env, line)
+                    if res is not None:
+                        print(json.dumps(res, indent=2, default=str))
+                except Exception as e:
+                    print(f"error: {e}")
 
 
 async def _run_backup(args) -> None:
@@ -735,7 +980,7 @@ def main(argv: list[str] | None = None) -> None:
     if env_off:
         from .storage import types as _types
         _types.set_offset_size(int(env_off))
-    if args.cmd == "volume":
+    if args.cmd in ("master", "volume", "shell"):
         init_daemon(args)
     _discover_security_toml()
     offline = {"fix": _run_fix, "export": _run_export,
@@ -743,7 +988,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.cmd in offline:
         offline[args.cmd](args)
         return
-    runners = {"volume": _run_volume, "backup": _run_backup}
+    runners = {"master": _run_master, "volume": _run_volume,
+               "shell": _run_shell, "backup": _run_backup}
     try:
         asyncio.run(runners[args.cmd](args))
     except KeyboardInterrupt:

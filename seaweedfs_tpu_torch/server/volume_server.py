@@ -15,7 +15,7 @@ sends its batched and recover transforms through the GF(2) bit-matrix
 product); start() resolves the port's native host library off the event
 loop; and a handler that reaches a module not ported yet answers 500
 with the ImportError that names the seaweedfs_tpu_torch module
-(_unported_mw). Every handler of the reference is ported; what the
+(util/unported.py). Every handler of the reference is ported; what the
 middleware still guards is util/client.py's filer route cache, which
 needs filer/shard.py.
 """
@@ -39,7 +39,7 @@ from ..ec import gf
 from ..ec import pipeline as ecpl
 from ..ec.ec_volume import EcVolumeError
 from ..pb import messages as pb
-from ..util import batchframe, failpoints, glog, tracing
+from ..util import batchframe, failpoints, glog, tracing, unported
 from ..util.resilience import BreakerRegistry
 from ..storage import types as t
 from ..storage.needle import CrcMismatch, Needle, NeedleError
@@ -57,9 +57,6 @@ def _wk():
 
 
 _FID_PATH = re.compile(r"^/(\d+),")
-# this package's name, which the ImportError of a module not ported yet
-# carries (_unported_mw)
-_PORT = __name__.split(".")[0]
 
 
 def _request_vid(req: "web.Request") -> int | None:
@@ -318,27 +315,12 @@ class VolumeServer:
                 sp.status = "ok" if resp.status < 400 else str(resp.status)
             return resp
 
-    @web.middleware
-    async def _unported_mw(self, req: web.Request, handler):
-        """A handler that reaches a module not in the port yet (the
-        filer route cache of util/client.py needs filer/shard.py) fails
-        its lazy import with an ImportError that names the
-        seaweedfs_tpu_torch module; answer 500 with that message instead
-        of aiohttp's bare 500."""
-        try:
-            return await handler(req)
-        except ImportError as e:
-            if _PORT not in str(e):
-                raise
-            return web.json_response(
-                {"error": f"not ported yet: {e}"}, status=500)
-
     def _build_app(self) -> web.Application:
         from ..security.guard import middleware as guard_mw
         middlewares = [self._trace_mw,
                        guard_mw(lambda: self.guard,
                                 self._guarded_request),
-                       self._unported_mw]
+                       unported.middleware]
         if self.worker_ctx is not None:
             middlewares.append(self._worker_route_mw)
         app = web.Application(

@@ -514,3 +514,54 @@ def test_workers_phase_rehearses_on_the_cpu(monkeypatch):
             time.sleep(0.1)
         else:
             raise AssertionError(f"worker pid {pid} still running")
+
+
+def test_cluster_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 11 on a volume of a few MiB on the CPU: a port master and
+    two port volume servers (-ecBackend cpu) in this process, the port's
+    shell in process and through `cli shell -c` in a subprocess that
+    imports no jax: writes through /dir/assign, ec.encode over both
+    servers (parity equal to phase 8's), every needle intact and with 4
+    shards of one server lost, the autopilot's rebuild with remote
+    sources, ec.verify clean and flipped with the scrub's localization,
+    ec.rebuild, and ec.decode to a .dat sha256-equal to the original. A
+    CPU call of the kernel's wrapper counts nothing, so this test counts
+    the encoder's calls of it in the wrapper's counter: each step's count
+    is held to the phase's expectation as it is on the card."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+    from seaweedfs_tpu_torch.ec import encoder_torch
+    from seaweedfs_tpu_torch.ops import gf256_cuda
+
+    mib = chip_smoke.MIB
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE", (mib, 3 * mib))
+    monkeypatch.setattr(chip_smoke, "CLUSTER_DIR", str(tmp_path / "cl"))
+    src = tmp_path / "src"
+    src.mkdir()
+    server = chip_smoke.phase_server(torch.device("cpu"), 3, 5 * mib,
+                                     backend="cpu", keep_dir=str(src))
+    transform = encoder_torch.gf256_transform
+
+    def counting(consts, x):
+        out = transform(consts, x)
+        gf256_cuda.count_launch()
+        return out
+
+    monkeypatch.setattr(encoder_torch, "gf256_transform", counting)
+    seen = chip_smoke.phase_cluster(
+        torch.device("cpu"), 3, 5 * mib, str(src), backend="cpu",
+        assign_bytes=2 * mib, parity_sha=server["parity_sha"], limit_mb=1)
+    exp = seen["expected"]
+    assert exp["pass B"] == seen["split"][1] > 0 and seen["split"][0] > 0
+    assert exp["ec.encode"] >= 1 and exp["autopilot"] == 2 * exp["ec.rebuild"]
+    assert exp["ec.verify"] == exp["ec.verify flipped"] >= 1
+    assert exp["scrub"] >= 1 + 28
+    assert exp["assign reads"] == exp["pass A"] == exp["decoded reads"] == 0
+    assert len(seen["lost"]) == 4 and len(seen["lost2"]) == 4
+    # the reckoning that predicts a chip run's counts, from the seed alone
+    assert tuple(seen["lost"]) == (0, 2, 4, 6)
+    assert chip_smoke.cluster_prediction(3, 5 * mib) == exp
+    assert chip_smoke.check_store_counts(seen, "cluster path") \
+        == sum(exp.values())
+    assert not os.path.exists(chip_smoke.CLUSTER_DIR)

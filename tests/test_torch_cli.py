@@ -175,8 +175,22 @@ def test_cli_workers_serve_through_the_shared_port(tmp_path):
                 w["alive"] for w in got)
             return got
 
-        pids = {w["index"]: w["pid"] for w in _wait_http(rows)}
+        got = _wait_http(rows)
+        pids = {w["index"]: w["pid"] for w in got}
         assert len(set(pids.values())) == 2
+
+        def sibling_found(w):
+            # a worker caches a sibling's missing state file for
+            # STATE_TTL and answers 503 for the sibling's volumes until
+            # then: ask each worker's private listener for a volume the
+            # other owns, so no request below meets that window
+            other = 3 if w["index"] == 0 else 4
+            st, body = _fetch("GET", f"http://{w['ip']}:{w['port']}/admin/"
+                                     f"volume/status?volume={other}")
+            assert st != 503, (st, body)
+
+        for w in got:
+            _wait_http(lambda w=w: sibling_found(w))
         # volumes 3 and 4 land in different partitions (vid % 2)
         for vid in (3, 4):
             st, body = _wait_http(lambda vid=vid: _ok(_fetch(
@@ -187,7 +201,8 @@ def test_cli_workers_serve_through_the_shared_port(tmp_path):
         for _ in range(6):  # whichever worker takes the connection
             for vid in (3, 4):
                 st, body = _fetch("GET", f"{shared}/{vid},1deadbeef")
-                assert st == 200 and body == NEEDLE + bytes([vid])
+                assert st == 200 and body == NEEDLE + bytes([vid]), \
+                    (st, body[:200])
     finally:
         _stop(proc)
     assert proc.returncode == 0, proc.stderr.read()[-2000:]

@@ -1,12 +1,17 @@
-"""In-process cluster of the port's volume servers under the JAX package's
-master, for the port's server tests (no test cases in this file).
+"""In-process cluster of the port's master and volume servers, for the
+port's server tests (no test cases in this file).
 
-The port of tests/cluster_util.py: one reference `MasterServer` (the
-port has no master yet; it speaks HTTP to the volume servers) and N
-`seaweedfs_tpu_torch` `VolumeServer`s on one event loop, every one bound
-to port 0. While the cluster is up, SWTPU_TORCH_EC_BACKEND is `cpu`, so
-the port's EC handlers run the kernel's plain PyTorch version on this
-host, and it is restored on exit.
+The port of tests/cluster_util.py: one `seaweedfs_tpu_torch`
+`MasterServer` and N `seaweedfs_tpu_torch` `VolumeServer`s on one event
+loop, every one bound to port 0. A parity test of the wire passes the
+JAX package's classes instead (`master_cls`, or `volume_cls` with
+`store_cls`), so the same harness runs a reference master over port
+volume servers, or reference volume servers under a port master. While
+the cluster is up, SWTPU_TORCH_EC_BACKEND is `cpu`, so the port's EC
+handlers run the kernel's plain PyTorch version on this host, and torch
+runs its CPU operators on one thread: several test processes share the
+host, and an intra-op pool per process oversubscribes its cores. Both
+are restored on exit.
 """
 
 from __future__ import annotations
@@ -17,22 +22,25 @@ import os
 import socket
 
 import aiohttp
+import torch
 
-from seaweedfs_tpu.master.server import MasterServer
 from seaweedfs_tpu_torch.ec.pipeline import BACKEND_ENV
+from seaweedfs_tpu_torch.master.server import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.storage.store import Store
 
 
 class Cluster:
-    """Reference master + N port volume servers on ephemeral ports."""
+    """Port master + N port volume servers on ephemeral ports."""
 
     def __init__(self, tmpdir: str, n_servers: int = 3,
                  racks: list[tuple[str, str]] | None = None,
                  pulse: float = 0.2, max_volumes: int = 16,
                  ec_large_block: int = 16 * 1024,
                  ec_small_block: int = 1024,
-                 master_kwargs: dict | None = None):
+                 master_kwargs: dict | None = None,
+                 master_cls=MasterServer, volume_cls=VolumeServer,
+                 store_cls=Store):
         self.tmpdir = tmpdir
         self.n = n_servers
         self.racks = racks or [("dc1", "rack1")] * n_servers
@@ -40,28 +48,35 @@ class Cluster:
         self.max_volumes = max_volumes
         self.ec_large_block = ec_large_block
         self.ec_small_block = ec_small_block
-        self.master: MasterServer | None = None
-        self.servers: list[VolumeServer] = []
+        self.master_cls = master_cls
+        self.volume_cls = volume_cls
+        self.store_cls = store_cls
+        self.master = None
+        self.servers: list = []
         self.http: aiohttp.ClientSession | None = None
         self.master_kwargs = master_kwargs or {}
         self._env: str | None = None
+        self._threads: int | None = None
 
     async def __aenter__(self) -> "Cluster":
         self._env = os.environ.get(BACKEND_ENV)
         os.environ[BACKEND_ENV] = "cpu"
-        self.master = MasterServer(port=0, pulse_seconds=self.pulse,
-                                   volume_size_limit_mb=64,
-                                   **self.master_kwargs)
+        self._threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        self.master = self.master_cls(port=0, pulse_seconds=self.pulse,
+                                      volume_size_limit_mb=64,
+                                      **self.master_kwargs)
         await self.master.start()
         for i in range(self.n):
             d = os.path.join(self.tmpdir, f"srv{i}")
-            store = Store([d], max_volume_counts=[self.max_volumes],
-                          ec_large_block=self.ec_large_block,
-                          ec_small_block=self.ec_small_block)
+            store = self.store_cls(
+                [d], max_volume_counts=[self.max_volumes],
+                ec_large_block=self.ec_large_block,
+                ec_small_block=self.ec_small_block)
             dc, rack = self.racks[i]
-            vs = VolumeServer(store, self.master.url, port=0,
-                              data_center=dc, rack=rack,
-                              pulse_seconds=self.pulse)
+            vs = self.volume_cls(store, self.master.url, port=0,
+                                 data_center=dc, rack=rack,
+                                 pulse_seconds=self.pulse)
             await vs.start()
             await vs.heartbeat_once()
             self.servers.append(vs)
@@ -81,6 +96,8 @@ class Cluster:
             os.environ.pop(BACKEND_ENV, None)
         else:
             os.environ[BACKEND_ENV] = self._env
+        if self._threads is not None:
+            torch.set_num_threads(self._threads)
 
     # -- client helpers --
 

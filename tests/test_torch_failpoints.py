@@ -3,9 +3,8 @@ the live /debug/failpoints admin endpoint + injected faults end-to-end
 against an in-proc cluster.
 
 The cases of tests/test_failpoints.py pointed at the port
-(seaweedfs_tpu_torch): its modules, its servers and its own registries.
-The master is the JAX package's, so its site is armed in the reference
-registry.
+(seaweedfs_tpu_torch): its modules, its servers (the master too) and
+its own registries.
 """
 
 import random
@@ -172,14 +171,17 @@ def test_injected_write_error_is_not_acked(tmp_path):
 
 
 def test_master_assign_failpoint(tmp_path):
-    """The master is the JAX package's, so its site is armed in the
-    reference registry; the port's registry and server stay clean."""
+    """The master is the port's, so its site is armed in the port's
+    registry; arming it in the JAX package's registry injects nothing."""
     from seaweedfs_tpu.util import failpoints as ref_fp
 
     async def go():
         async with Cluster(str(tmp_path), n_servers=1) as c:
             ref_fp.arm("master.assign", "error:1")
             assert fp.list_armed() == []
+            assert "fid" in await c.assign()
+            ref_fp.reset()
+            fp.arm("master.assign", "error:1")
             body = await c.assign()
             assert "error" in body
             body = await c.assign()

@@ -82,7 +82,14 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.query.json_query",
                 "seaweedfs_tpu_torch.stats.slo",
                 "seaweedfs_tpu_torch.stats.profiler",
-                "seaweedfs_tpu_torch.util.pprof"):
+                "seaweedfs_tpu_torch.util.pprof",
+                "seaweedfs_tpu_torch.master.server",
+                "seaweedfs_tpu_torch.master.election",
+                "seaweedfs_tpu_torch.topology.layout",
+                "seaweedfs_tpu_torch.autopilot.controller",
+                "seaweedfs_tpu_torch.shell.runner",
+                "seaweedfs_tpu_torch.stats.introspect",
+                "seaweedfs_tpu_torch.util.masterclient"):
         assert mod in report["modules"], mod
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == [], leaked
@@ -111,6 +118,48 @@ def test_cli_and_volume_server_alone_load_no_jax():
     assert [m for m in report["modules"] if _forbidden(m)] == []
     assert "seaweedfs_tpu_torch.server.wire" in report["modules"]
     assert report["loaded"] == []
+
+
+@pytest.mark.parametrize("module", [
+    "seaweedfs_tpu_torch.master.server",
+    "seaweedfs_tpu_torch.autopilot",
+    "seaweedfs_tpu_torch.shell.runner",
+    "seaweedfs_tpu_torch.stats.introspect",
+])
+def test_control_plane_module_alone_loads_no_jax(module):
+    """Each module of the port's control plane, imported alone in a
+    fresh process, loads no jax and nothing of seaweedfs_tpu."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    modules = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert module in modules
+    assert [m for m in modules if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("cmd", ["master", "shell"])
+def test_cli_master_and_shell_entry_points_load_no_jax(cmd):
+    """`python -m seaweedfs_tpu_torch.cli master -h` (and `shell -h`)
+    import no jax and nothing of seaweedfs_tpu: -X importtime lists every
+    module the command's process imports."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "seaweedfs_tpu_torch.cli",
+         cmd, "-h"], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f"weed-torch {cmd}" in proc.stdout
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    # the module runs as __main__; its own imports are listed
+    assert "seaweedfs_tpu_torch.security.tls" in imported
+    assert [m for m in imported if _forbidden(m)] == []
 
 
 def test_port_maps_its_own_native_library_only(tmp_path):

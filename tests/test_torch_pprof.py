@@ -151,7 +151,9 @@ def test_dump_now_unarmed_is_empty():
 
 def test_debug_pprof_route_reports_and_dumps(tmp_path):
     async def go():
-        async with Cluster(str(tmp_path), n_servers=1) as c:
+        from seaweedfs_tpu.master.server import MasterServer as RefMaster
+        async with Cluster(str(tmp_path), n_servers=1,
+                           master_cls=RefMaster) as c:
             vs = c.servers[0]
             # the master is the JAX package's: it serves the reference's
             # handler from the reference's registry, the port volume

@@ -9,7 +9,7 @@ behind one SO_REUSEPORT port, under the JAX package's master run in
 this process on port 0. The fleet's port is one found free, and every
 wait is a bounded loop on readiness, never a fixed sleep or a fixed
 port. The master-side cases (seq lease, assign accelerator, `master
--workers`) wait for the port's master.
+-workers`) run on the port's master in tests/test_torch_master_workers.py.
 """
 
 from __future__ import annotations
