@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
                           [--server-mib N] [--mxu-extra-mib N]
-                          [--workers-mib N] [--cluster-assign-mib N]
+                          [--workers-mib N]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
 and the fused kernel of the GF(2) bit-matrix product), then:
@@ -103,6 +103,24 @@ and the fused kernel of the GF(2) bit-matrix product), then:
    and 3 shards of the other server (sha256-equal); ec.decode, with data
    shard 0 lost, rebuilds it and reassembles a .dat sha256-equal to the
    original; checks each step's kernel launches against its geometry;
+12. runs the filer tier on the port's own cluster, no module of
+   seaweedfs_tpu in any of its processes: a port master (its volume
+   limit twice --server-mib), two port volume servers (-ecBackend gpu)
+   and a port filer (cli.start_filer at the CLI defaults: -store sqlite,
+   -chunkSizeMB 32, -cache.mem 64, a collection of its own) in process.
+   A tree of about --server-mib bytes made from --seed (about 2,000
+   files of 1-64 KiB and about 50 of 1-96 MiB in 42 directories, three
+   deep) goes in through `python -m seaweedfs_tpu_torch.cli filer.copy`
+   in a subprocess whose -X importtime log lists no jax module; every
+   directory is listed (equal to the tree), every file read through the
+   filer (sha256) and 20 Range GETs across chunk boundaries run;
+   ec.encode -collection encodes the chunks' volume; 4 shards of one
+   server are lost; the filer restarts on its sqlite store with a cold
+   chunk cache; every file and the same ranges are read again, the
+   degraded chunks recovered by K1; fs.du, fs.ls and fs.meta.notify run
+   through the shell and /cluster/shards answers; holds each step's
+   launches to its count from the .ecx and to filer_prediction, the
+   reckoning from the seed alone;
    then prints one JSON line describing each kernel.
 
 The last line of standard output is
@@ -118,6 +136,7 @@ import hashlib
 import json
 import math
 import os
+import posixpath
 import shutil
 import re
 import subprocess
@@ -2829,6 +2848,549 @@ async def _drive_cluster(dev: torch.device, seed: int, target: int,
             "split": (host_n, card_n), "lost": lost, "lost2": lost2}
 
 
+FILER_DIR = os.path.join(ROOT, ".smoke_filer")
+# the filer's own collection: ec.encode -collection takes its volume only
+FILER_COLLECTION = "filer12"
+# small files per GiB of tree (about 2,000 in the 1 GiB tree, at least one
+# a directory in a smaller one) and their size range
+FILER_SMALL_PER_GIB = 2000
+FILER_SMALL = (1 << 10, 64 << 10)
+# the large files' range, drawn log-uniform: about 50 fill the rest of a
+# 1 GiB tree, and the quarter of them over 32 MiB span 2-3 chunks
+FILER_LARGE = (MIB, 96 * MIB)
+# directory fan-out per level: 2 + 8 + 32 = 42 directories, 3 deep
+FILER_FANOUT = (2, 4, 4)
+# the filer CLI's -chunkSizeMB default (seaweedfs_tpu/cli.py:311)
+FILER_CHUNK_MB = 32
+# Range GETs across chunk boundaries, in each of the two read passes
+FILER_RANGES = 20
+# the 4 shards lost on shard 0's holder: ec.encode spreads the 14 shards
+# one each way in turn, so that server holds the even shards
+FILER_LOST = (0, 2, 4, 6)
+
+
+def filer_tree(seed: int, target: int) -> tuple[list[str], list[tuple]]:
+    """Phase 12's tree made from `seed` up to `target` bytes, without
+    writing it: its directories (relative, parents first) and its files
+    (relative path, size). Nearly all files are uniform in FILER_SMALL,
+    the rest log-uniform in FILER_LARGE; every directory holds a file,
+    since filer.copy makes a directory only for the files under it."""
+    rng = np.random.default_rng(seed)
+    dirs: list[str] = []
+
+    def grow(prefix: str, level: int) -> None:
+        for i in range(FILER_FANOUT[level]):
+            d = f"{prefix}{'abc'[level]}{i}"
+            dirs.append(d)
+            if level + 1 < len(FILER_FANOUT):
+                grow(d + "/", level + 1)
+
+    grow("", 0)
+    n_small = max(len(dirs),
+                  round(FILER_SMALL_PER_GIB * target / (1 << 30)))
+    sizes = [int(s) for s in rng.integers(FILER_SMALL[0],
+                                          FILER_SMALL[1] + 1, n_small)]
+    total = sum(sizes)
+    lo, hi = math.log(FILER_LARGE[0]), math.log(FILER_LARGE[1])
+    while total < target:
+        sizes.append(int(math.exp(rng.uniform(lo, hi))))
+        total += sizes[-1]
+    order = rng.permutation(len(sizes))
+    where = np.concatenate([np.arange(len(dirs)), rng.integers(
+        0, len(dirs), len(sizes) - len(dirs))])
+    files = [(f"{dirs[int(w)]}/f{i:05d}.bin", sizes[int(k)])
+             for i, (k, w) in enumerate(zip(order, where))]
+    return dirs, files
+
+
+def write_filer_tree(seed: int, root: str, files: list[tuple]) -> dict:
+    """Write the tree's files under `root` (contents from `seed`);
+    returns each relative path's sha256."""
+    rng = np.random.default_rng([seed, 12])
+    shas = {}
+    for rel, size in files:
+        data = rng.bytes(size)
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        shas[rel] = hashlib.sha256(data).hexdigest()
+    return shas
+
+
+def chunk_sizes(size: int, chunk: int) -> list[int]:
+    """The filer's chunks of a `size`-byte file (auto-chunking at
+    -chunkSizeMB)."""
+    return [chunk] * (size // chunk) + ([size % chunk] if size % chunk
+                                        else [])
+
+
+def filer_ranges(seed: int, files: list[tuple], chunk: int) -> list[tuple]:
+    """FILER_RANGES (file index, first byte, last byte) that cross a chunk
+    boundary of a multi-chunk file, from `seed`: the boundaries in turn,
+    each range starting 1 B-256 KiB before its boundary and ending
+    1 B-256 KiB after it."""
+    rng = np.random.default_rng([seed, 13])
+    bounds = [(i, b) for i, (_, size) in enumerate(files)
+              for b in range(chunk, size, chunk)]
+    check(bounds != [], "the tree has no file of more than one chunk")
+    out = []
+    for j in range(FILER_RANGES):
+        i, b = bounds[j % len(bounds)]
+        size = files[i][1]
+        start = b - int(rng.integers(1, (256 << 10) + 1))
+        end = min(size - 1, b + int(rng.integers(0, 256 << 10)))
+        out.append((i, start, end))
+    return out
+
+
+def chunk_record_size(n: int) -> int:
+    """On-disk bytes of one chunk the filer POSTs raw: data, flags and a
+    last-modified time (no name, no mime for an octet-stream upload)."""
+    from seaweedfs_tpu_torch.storage.needle import LAST_MODIFIED_BYTES
+    return st.actual_size(4 + n + 1 + LAST_MODIFIED_BYTES,
+                          st.CURRENT_VERSION)
+
+
+def full_blocks_lost(offset: int, record: int, lost: tuple) -> int:
+    """Small blocks (1 MiB, shard = block index mod 10) that a record at
+    `offset` covers whole and that lie on a `lost` shard: its recovers at
+    or above the 1 MiB -ec.smallrecover default."""
+    first = -(-offset // pl.SMALL_BLOCK_SIZE)
+    last = (offset + record) // pl.SMALL_BLOCK_SIZE
+    return sum(1 for b in range(first, last)
+               if b % gf.DATA_SHARDS in lost)
+
+
+def record_recover_bounds(record: int, lost: tuple) -> tuple[int, int]:
+    """The least and the most recovers of at least 1 MiB of one record
+    over every offset it can have in a volume of small-block rows: the
+    count changes only where the record's start or end crosses a block
+    boundary, so those offsets (and 8 bytes either side) are enough."""
+    row = gf.DATA_SHARDS * pl.SMALL_BLOCK_SIZE
+    cands = {(base + d) % row for j in range(gf.DATA_SHARDS)
+             for base in (j * pl.SMALL_BLOCK_SIZE,
+                          j * pl.SMALL_BLOCK_SIZE - record)
+             for d in (-8, 0, 8)}
+    counts = [full_blocks_lost(o, record, lost) for o in cands]
+    return min(counts), max(counts)
+
+
+def filer_prediction(seed: int, target: int,
+                     chunk: int = FILER_CHUNK_MB * MIB,
+                     lost: tuple = FILER_LOST) -> dict:
+    """Phase 12's K1 launches per step, reckoned on any host from the seed
+    alone. Every chunk lands in the collection's one volume (the master
+    grows one volume at a time and its limit is twice the tree), whose
+    .dat size is the sum of the chunk records whatever their order:
+    ec.encode's launches are its row batches, 8 a launch. The read passes
+    before ec.encode and the listing, restart and shell steps launch
+    nothing. The degraded passes recover each lost whole block of a
+    chunk read; filer.copy uploads 8 files at a time, so a chunk's offset
+    in the volume (and with it which blocks it covers whole) is not fixed
+    by the seed, and those steps get the least and the most over every
+    offset, (lo, hi)."""
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    _, files = filer_tree(seed, target)
+    chunks = [chunk_sizes(size, chunk) for _, size in files]
+    dat_size = SUPER_BLOCK_SIZE + sum(chunk_record_size(c)
+                                      for cs in chunks for c in cs)
+    bounds = {c: record_recover_bounds(chunk_record_size(c), lost)
+              for cs in chunks for c in cs}
+
+    def span(sizes: list[int]) -> tuple[int, int]:
+        return (sum(bounds[c][0] for c in sizes),
+                sum(bounds[c][1] for c in sizes))
+
+    ranged = []
+    for i, start, end in filer_ranges(seed, files, chunk):
+        cs = chunks[i]
+        ranged += cs[start // chunk:end // chunk + 1]
+    return {"ingest": 0, "listing": 0, "GET intact": 0,
+            "Range intact": 0,
+            "ec.encode": batched_generate_launches(
+                dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE),
+            "restart": 0,
+            "GET degraded": span([c for cs in chunks for c in cs]),
+            "Range degraded": span(ranged),
+            "fs.du": 0, "fs.meta.notify": 0}
+
+
+def within_prediction(launches: dict, predicted: dict) -> bool:
+    """Each step's launches equal its predicted count, or lie in its
+    predicted (lo, hi)."""
+    if set(launches) != set(predicted):
+        return False
+    for step, want in predicted.items():
+        got = launches[step]
+        if isinstance(want, tuple):
+            if not want[0] <= got <= want[1]:
+                return False
+        elif got != want:
+            return False
+    return True
+
+
+def phase_filer(dev: torch.device, seed: int, target: int, *,
+                card: str = "", backend: str = "gpu",
+                chunk_mb: int = FILER_CHUNK_MB) -> dict:
+    """The filer tier over the port's own cluster, no module of
+    seaweedfs_tpu in any of its processes: a port master (cli.start_master,
+    its volume limit twice the tree), two port volume servers
+    (cli.start_volume, -ecBackend <backend>) and one port filer
+    (cli.start_filer at the CLI defaults, -chunkSizeMB `chunk_mb`, a
+    collection of its own) in this process. A tree made from `seed` up to
+    `target` bytes goes in through `cli filer.copy` in a subprocess; every
+    directory is listed, every file read (sha256) and FILER_RANGES Range
+    GETs across chunk boundaries run; ec.encode -collection encodes the
+    chunks' volume; 4 shards of one server are lost; the filer restarts
+    on its sqlite store with a cold chunk cache; every file and the same
+    ranges are read again, the degraded chunks recovered by K1; fs.du and
+    fs.meta.notify run through the shell, and /cluster/shards answers.
+    Returns the launch counts, what the .ecx says they must be and the
+    timings."""
+    import asyncio
+    run_dir = os.path.join(FILER_DIR, "run")
+    shutil.rmtree(FILER_DIR, ignore_errors=True)
+    for d in ("m", "v0", "v1", "src"):
+        os.makedirs(os.path.join(run_dir, d))
+    try:
+        return asyncio.run(_drive_filer(dev, seed, target, run_dir, card,
+                                        backend, chunk_mb))
+    finally:
+        shutil.rmtree(FILER_DIR, ignore_errors=True)
+
+
+async def _drive_filer(dev: torch.device, seed: int, target: int,
+                       run_dir: str, card: str, backend: str,
+                       chunk_mb: int) -> dict:
+    import asyncio
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.notification.queues import FileQueue
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.shell.runner import dispatch
+
+    tag = f"[{card}]" if card else ""
+    launches, expected, timing = {}, {}, {}
+    chunk = chunk_mb * MIB
+    parser = cli.build_parser()
+    dirs, files = filer_tree(seed, target)
+    src = os.path.join(run_dir, "src", "tree")
+    t0 = time.perf_counter()
+    shas = await asyncio.get_running_loop().run_in_executor(
+        None, write_filer_tree, seed, src, files)
+    timing["make tree"] = time.perf_counter() - t0
+    total = sum(size for _, size in files)
+    ranges = filer_ranges(seed, files, chunk)
+    root = "/data/tree"
+
+    async def counted(step: str, coro):
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = await coro
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    filer_argv = ["filer", "-port", "0", "-store", "sqlite", "-dbPath",
+                  os.path.join(run_dir, "filer.db"), "-chunkSizeMB",
+                  str(chunk_mb), "-cache.mem", "64", "-collection",
+                  FILER_COLLECTION]
+    limit_mb = 2 * -(-target // MIB)
+    master, mrec = await cli.start_master(parser.parse_args(
+        cluster_master_args(run_dir, limit_mb)))
+    servers, recs, filers = [], [mrec], []
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    try:
+        for i in range(2):
+            vs, rec = await cli.start_volume(parser.parse_args(
+                server_args(backend, os.path.join(run_dir, f"v{i}"),
+                            master=master.url)
+                + ["-max", str(CLUSTER_MAX_VOLUMES)]))
+            servers.append(vs)
+            recs.append(rec)
+            check(await vs.heartbeat_once(),
+                  f"volume server {vs.url} not registered with the master")
+        fs, rec = await cli.start_filer(parser.parse_args(
+            filer_argv + ["-master", master.url]))
+        filers.append(fs)
+        recs.append(rec)
+
+        async def read_file(rel: str) -> float:
+            """GET one file through the filer, sha256-equal to the tree's;
+            returns its seconds."""
+            h = hashlib.sha256()
+            t0 = time.perf_counter()
+            async with http.get(f"http://{fs.url}{root}/{rel}") as r:
+                status = r.status
+                async for block in r.content.iter_chunked(1 << 20):
+                    h.update(block)
+            check(status == 200 and h.hexdigest() == shas[rel],
+                  f"GET {root}/{rel}: status {status}, sha256 differs "
+                  f"from the file written")
+            return time.perf_counter() - t0
+
+        async def read_all() -> list[float]:
+            return [await read_file(rel) for rel, _ in files]
+
+        async def read_range(i: int, start: int, end: int) -> None:
+            rel = files[i][0]
+            with open(os.path.join(src, rel), "rb") as f:
+                f.seek(start)
+                want = f.read(end - start + 1)
+            async with http.get(f"http://{fs.url}{root}/{rel}",
+                                headers={"Range": f"bytes={start}-{end}"}
+                                ) as r:
+                body = await r.read()
+                check(r.status == 206 and body == want,
+                      f"Range {start}-{end} of {rel}: status {r.status}, "
+                      f"{len(body)} bytes, expected {len(want)}")
+
+        async def shell(command: str):
+            async with CommandEnv(master.url, http) as env:
+                return await dispatch(env, command)
+
+        # -- 1. ingest through `cli filer.copy` in a subprocess
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+        async def ingest():
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-X", "importtime", "-m",
+                "seaweedfs_tpu_torch.cli", "filer.copy", src,
+                f"http://{fs.url}/data/", cwd=ROOT, env=env,
+                stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            try:
+                out, err = await asyncio.wait_for(proc.communicate(), 900)
+            except BaseException:
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+                raise
+            err_text = err.decode(errors="replace")
+            check(proc.returncode == 0, f"filer.copy: exit "
+                  f"{proc.returncode}: {out.decode()[-1000:]} "
+                  f"{err_text[-2000:]}")
+            bad = forbidden_imports(err_text)
+            check(bad == [], f"filer.copy imported {bad[:5]}")
+            check("import time:" in err_text,
+                  "the filer.copy subprocess printed no -X importtime log")
+            return out.decode()
+
+        out = await counted("ingest", ingest())
+        check(f"copied {len(files)} files" in out, f"filer.copy: {out}")
+        t = timing["ingest"]
+        print(f"  ingest (cli filer.copy -concurrency 8 in a subprocess, "
+              f"no jax or seaweedfs_tpu imported): {len(files)} files in "
+              f"{len(dirs)} directories, {total} bytes in {t:.3f} s "
+              f"({total / t / 1e6:.1f} MB/s, {len(files) / t:.1f} "
+              f"files/s) {tag}")
+
+        # -- 2. every directory listed, equal to the tree
+        async def list_all() -> dict:
+            entries = {}
+            for d in [""] + dirs:
+                path = root + ("/" + d if d else "")
+                async with http.get(f"http://{fs.url}{path}",
+                                    params={"limit": "100000"}) as r:
+                    body = await r.json()
+                    check(r.status == 200, f"list {path}: {r.status}")
+                got = {(e["FullPath"], e["IsDirectory"],
+                        e["FileSize"] if not e["IsDirectory"] else 0)
+                       for e in body["Entries"]}
+                want = {(f"{root}/{x}", True, 0) for x in dirs
+                        if posixpath.dirname(x) == d}
+                want |= {(f"{root}/{rel}", False, size)
+                         for rel, size in files
+                         if posixpath.dirname(rel) == d}
+                check(got == want, f"listing of {path} differs from the "
+                      f"tree: {sorted(got ^ want)[:4]}")
+                for e in body["Entries"]:
+                    entries[e["FullPath"]] = e
+            return entries
+
+        entries = await counted("listing", list_all())
+        print(f"  listing: {len(dirs) + 1} directories, each equal to the "
+              f"tree, in {timing['listing']:.3f} s {tag}")
+        fids = {rel: [c["file_id"] for c in sorted(
+            entries[f"{root}/{rel}"]["chunks"], key=lambda c: c["offset"])]
+            for rel, _ in files}
+        check(all(len(fids[rel]) == len(chunk_sizes(size, chunk))
+                  for rel, size in files),
+              "a file's chunk count differs from its size over the "
+              "chunk size")
+        vids = {int(fid.split(",")[0]) for fl in fids.values() for fid in fl}
+        check(len(vids) == 1, f"the chunks landed in volumes {vids}, "
+              f"expected one")
+        vid = next(iter(vids))
+
+        # -- 3. every file and the Range GETs, intact
+        lat_a = await counted("GET intact", read_all())
+
+        async def read_ranges():
+            for i, start, end in ranges:
+                await read_range(i, start, end)
+
+        await counted("Range intact", read_ranges())
+
+        # -- 4. ec.encode -collection through the port's shell
+        from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+        for vs in servers:
+            await vs.heartbeat_once()
+        source = next(vs for vs in servers if vid in vs.store.volumes)
+        dat_size = os.path.getsize(os.path.join(
+            source.store.dirs[0], f"{FILER_COLLECTION}_{vid}.dat"))
+        reckoned = SUPER_BLOCK_SIZE + sum(
+            chunk_record_size(c) for _, size in files
+            for c in chunk_sizes(size, chunk))
+        check(dat_size == reckoned, f"volume {vid}'s .dat holds {dat_size} "
+              f"bytes; the chunk records of the tree sum to {reckoned}")
+        res = await counted("ec.encode", shell(
+            f"ec.encode -collection {FILER_COLLECTION} -fullPercent 0"))
+        check(isinstance(res, list) and [r["volume"] for r in res]
+              == [vid], f"ec.encode answered {res}, expected volume {vid}")
+        spread = {u: sorted(s) for u, s in res[0]["assignments"].items()}
+        for vs in servers:
+            await vs.heartbeat_once()
+        owner = next(vs for vs in servers if vid in vs.store.ec_volumes
+                     and 0 in vs.store.ec_volumes[vid].shards)
+        base = os.path.join(owner.store.dirs[0],
+                            f"{FILER_COLLECTION}_{vid}")
+        expected["ec.encode"] = batched_generate_launches(
+            dat_size, source.store.ec_large_block,
+            source.store.ec_small_block)
+        print(f"  ec.encode -collection {FILER_COLLECTION} (the port's "
+              f"shell): volume {vid}, .dat {dat_size} bytes (the tree's "
+              f"chunk records, as reckoned), {timing['ec.encode']:.3f} s, "
+              f"shards {spread} {tag}")
+
+        # -- 5. 4 shards of shard 0's holder lost
+        lost = spread[owner.url][:4]
+        check(tuple(lost) == FILER_LOST, f"shard 0's holder {owner.url} "
+              f"holds {spread[owner.url]}; the prediction loses "
+              f"{FILER_LOST}")
+        arg = ",".join(map(str, lost))
+        for path in ("/admin/ec/unmount", "/admin/ec/delete_shards"):
+            async with http.post(f"http://{owner.url}{path}",
+                                 params={"volume": str(vid),
+                                         "collection": FILER_COLLECTION,
+                                         "shards": arg}) as r:
+                check(r.status == 200, f"POST {path}: {r.status} "
+                      f"{await r.text()}")
+        check(not any(os.path.exists(base + pl.to_ext(s)) for s in lost),
+              f"lost shard files {lost} still on {owner.url}")
+        for vs in servers:
+            vs.store.drop_cached_volume(vid)
+            vs.store.ec_recover_cache.drop_volume(vid)
+            await vs.heartbeat_once()
+
+        # -- 6. the filer restarts on its sqlite store
+        async def restart():
+            await fs.stop()
+            return await cli.start_filer(parser.parse_args(
+                filer_argv + ["-master", master.url]))
+
+        fs, rec = await counted("restart", restart())
+        filers.append(fs)
+        recs.append(rec)
+        print(f"  filer restart on the same sqlite -dbPath: "
+              f"{timing['restart']:.3f} s {tag}")
+
+        # -- 7. every file and the same ranges, degraded
+        present = next(s for s in range(gf.TOTAL_SHARDS) if s not in lost)
+        holder = next(vs for vs in servers if vid in vs.store.ec_volumes
+                      and present in vs.store.ec_volumes[vid].shards)
+        hbase = os.path.join(holder.store.dirs[0],
+                             f"{FILER_COLLECTION}_{vid}")
+        nid_of = {fid: st.FileId.parse(fid).key
+                  for fl in fids.values() for fid in fl}
+        ivs = lost_intervals(hbase, lost, holder.store.ec_large_block,
+                             holder.store.ec_small_block,
+                             list(nid_of.values()))
+        for vs in servers:
+            check_cache_cold(vs.store, dict.fromkeys(nid_of.values()),
+                             ivs, vid)
+        cc = fs.client.chunk_cache
+        check(not any(cc.contains(fid) for fid in nid_of),
+              "the restarted filer's chunk cache is not cold")
+        threshold = holder.store.ec_volumes[vid].small_recover_bytes
+        big = Counter(iv[0] for iv in ivs if iv[3] >= threshold)
+        lat_b = await counted("GET degraded", read_all())
+        expected["GET degraded"] = sum(big.values())
+
+        async def read_ranges_cold():
+            """Each range with the caches emptied first: the filer's of
+            the range's chunks, the servers' of the volume."""
+            for i, start, end in ranges:
+                for fid in fids[files[i][0]]:
+                    cc.delete(fid)
+                for vs in servers:
+                    vs.store.drop_cached_volume(vid)
+                    vs.store.ec_recover_cache.drop_volume(vid)
+                await read_range(i, start, end)
+
+        await counted("Range degraded", read_ranges_cold())
+        expected["Range degraded"] = sum(
+            big[nid_of[fid]] for i, start, end in ranges
+            for fid in fids[files[i][0]][start // chunk:end // chunk + 1])
+        host_n, card_n = split_at(ivs, threshold)
+        print(f"  degraded: shards {lost} lost on {owner.url}, {len(ivs)} "
+              f"intervals on them: {host_n} under the {threshold}-byte "
+              f"threshold (host), {card_n} at or above it (K1); every file "
+              f"and {len(ranges)} ranges sha256-equal {tag}")
+        for name, lat in (("intact", lat_a), ("degraded", lat_b)):
+            print(f"  GET {name} through the filer: {len(lat)} files in "
+                  f"{sum(lat):.3f} s, latency p50 "
+                  f"{percentile_ms(lat, 50):.4f} ms, p99 "
+                  f"{percentile_ms(lat, 99):.4f} ms {tag}")
+
+        # -- 8. fs.du and fs.meta.notify through the shell
+        du = await counted("fs.du", shell(f"fs.du -filer {fs.url} "
+                                          f"-path {root}"))
+        check(du == {"path": root, "files": len(files), "dirs": len(dirs),
+                     "bytes": total}, f"fs.du answered {du}")
+        ls = await shell(f"fs.ls -filer {fs.url} -path {root}")
+        check(ls == [d + "/" for d in dirs if "/" not in d],
+              f"fs.ls {root} answered {ls}")
+        qpath = os.path.join(run_dir, "notify.q")
+        note = await counted("fs.meta.notify", shell(
+            f"fs.meta.notify -filer {fs.url} -path {root} "
+            f"-notify file:{qpath}"))
+        msgs, _ = FileQueue(qpath).read_from(0)
+        check(note == {"notified_dirs": len(dirs),
+                       "notified_files": len(files)}
+              and len(msgs) == len(dirs) + len(files),
+              f"fs.meta.notify answered {note} with {len(msgs)} events")
+        for step in ("ingest", "listing", "GET intact", "Range intact",
+                     "restart", "fs.du", "fs.meta.notify"):
+            expected[step] = 0
+
+        # -- 9. the master's shard map answers
+        async with http.get(f"http://{master.url}/cluster/shards") as r:
+            body = await r.json()
+            check(r.status == 200 and "epoch" in body,
+                  f"GET /cluster/shards: {r.status} {body}")
+        print(f"  wall seconds per step: "
+              f"{ {k: round(v, 4) for k, v in timing.items()} } {tag}")
+        print(f"  filer path kernel launches per step: {launches} {tag}")
+    finally:
+        await http.close()
+        if filers:
+            await filers[-1].stop()
+        for vs in servers:
+            await vs.stop()
+        await master.stop()
+        for rec in recs:
+            if rec is not None:
+                rec.cancel()
+    return {"launches": launches, "expected": expected, "timing": timing,
+            "files": len(files), "intervals": len(ivs),
+            "split": (host_n, card_n), "lost": lost, "volume": vid,
+            "dat_size": dat_size}
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3012,12 +3574,29 @@ def main(argv=None) -> int:
           f"to the reckoning from the seed alone; no module of jax or "
           f"seaweedfs_tpu in this process")
 
+    print("== phase 12: the filer tier (filer.copy ingest, listings, GETs "
+          "and Range GETs through the filer, ec.encode of its volume, 4 "
+          "shards lost, filer restart, degraded reads through K1, fs.du, "
+          "fs.meta.notify)")
+    filer = phase_filer(dev, args.seed, args.server_mib * MIB, card=card)
+    filer_launches = check_store_counts(filer, "filer path")
+    predicted = filer_prediction(args.seed, args.server_mib * MIB)
+    check(within_prediction(filer["launches"], predicted),
+          f"phase 12 launched K1 {filer['launches']} times per step; the "
+          f"reckoning from the seed alone is {predicted}")
+    bad = forbidden_loaded()
+    check(bad == [], f"this process loaded {bad[:5]}")
+    print(f"  launches on the filer path: {filer_launches}, each step's "
+          f"equal to its count from the .ecx {filer['expected']} and within "
+          f"the reckoning from the seed alone {predicted}; no module of jax "
+          f"or seaweedfs_tpu in this process")
+
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
         "launches": main_launches + store_launches + server_launches
-        + mxu_k1 + cluster_launches,
+        + mxu_k1 + cluster_launches + filer_launches,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

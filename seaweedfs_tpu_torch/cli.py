@@ -1,24 +1,33 @@
 """`weed`-style CLI of the PyTorch port: the master, the volume server,
-the admin shell and the offline volume tools.
+the filer, the admin shell, the clients and the offline volume tools.
 
     python -m seaweedfs_tpu_torch.cli master -port 9333 [-mdir D] \\
         [-peers H:P,...] [-workers N] [-volumeSizeLimitMB 30000] ...
     python -m seaweedfs_tpu_torch.cli volume -port 8080 -dir ./data \\
         -master 127.0.0.1:9333 [-ecBackend auto|gpu|cpu] [-workers N] ...
+    python -m seaweedfs_tpu_torch.cli filer -port 8888 \\
+        -master 127.0.0.1:9333 [-store sqlite -dbPath ./filer.db] ...
+    python -m seaweedfs_tpu_torch.cli filer.copy DIR http://H:P/dir/
     python -m seaweedfs_tpu_torch.cli shell -master 127.0.0.1:9333 \\
         [-c 'ec.encode -collection x']
+    python -m seaweedfs_tpu_torch.cli upload|download|benchmark ...
+    python -m seaweedfs_tpu_torch.cli scaffold -config filer|version
     python -m seaweedfs_tpu_torch.cli compact|fix|export -dir D -volumeId N
     python -m seaweedfs_tpu_torch.cli backup -dir D -volumeId N -server H:P
 
-The port of seaweedfs_tpu/cli.py's `master`, `volume`, `shell`,
-`backup`, `fix`, `export` and `compact` subcommands (their flags, the
-runners and the process set-up of `main`, with the `-workers N`
-supervisor and master.toml's maintenance scripts and sequencer). The
-other subcommands are not ported yet. Start-up of one master or volume
-server process is split out as `start_master(args)` and
-`start_volume(args)`, coroutines that return the started server and its
-flight recorder, so a program can drive the same entry points in process
-(chip_smoke.py does).
+The port of seaweedfs_tpu/cli.py's `master`, `volume`, `filer`,
+`filer.copy`, `shell`, `upload`, `download`, `benchmark`, `scaffold`,
+`version`, `backup`, `fix`, `export` and `compact` subcommands (their
+flags, the runners and the process set-up of `main`, with the `-workers
+N` supervisor, master.toml's maintenance scripts and sequencer, and the
+filer's notification queue from -notify or a discovered
+notification.toml). The other subcommands (s3, webdav, mount, server,
+filer.replicate, bench-ec) are not ported yet. Start-up of one master,
+volume server or filer process is split out as `start_master(args)`,
+`start_volume(args)` and `start_filer(args)`, coroutines that return the
+started server and its flight recorder, so a program can drive the same
+entry points in process (chip_smoke.py does). `version` names this
+package.
 
 `-ecBackend` picks the EC engine through SWTPU_TORCH_EC_BACKEND (not the
 JAX package's SWTPU_EC_BACKEND): `gpu` is the CUDA kernel, `cpu` its
@@ -327,6 +336,136 @@ def build_parser() -> argparse.ArgumentParser:
     co.add_argument("-volumeId", type=int, required=True)
     co.add_argument("-collection", default="")
 
+    f = sub.add_parser("filer", help="start a filer server")
+    _add_common(f)
+    f.add_argument("-port", type=int, default=8888)
+    f.add_argument("-store", default="sqlite",
+                   help="filer store: memory|sqlite|leveldb|leveldb2|sql "
+                        "(+redis/mysql/postgres/etcd/cassandra when "
+                        "drivers are installed)")
+    f.add_argument("-dbPath", default="./filer.db")
+    f.add_argument("-chunkSizeMB", type=int, default=32)
+    f.add_argument("-collection", default="")
+    f.add_argument("-replication", default="")
+    f.add_argument("-notify", default="",
+                   help="publish meta changes: file:<path> | sqlite:<path> "
+                        "| log")
+    f.add_argument("-dataCenter", default="",
+                   help="prefer volumes in this data center for writes")
+    f.add_argument("-redirectOnRead", action="store_true",
+                   help="redirect single-chunk GETs to the volume server "
+                        "instead of proxying")
+    f.add_argument("-disableDirListing", action="store_true")
+    f.add_argument("-dirListLimit", type=int, default=100_000,
+                   help="cap on directory listing page size")
+    f.add_argument("-cache.mem", dest="cache_mem", type=int, default=64,
+                   help="MB of memory for the chunk read cache "
+                        "(0 disables)")
+    f.add_argument("-cache.dir", dest="cache_dir", default="",
+                   help="directory for the mmap-backed disk cache tier "
+                        "(empty = memory-only)")
+    f.add_argument("-shard.id", dest="shard_id", type=int, default=0,
+                   help="this filer's shard id in a sharded metadata "
+                        "plane (0-based)")
+    f.add_argument("-shard.of", dest="shard_of", type=int, default=1,
+                   help="total filer shards; >1 enables prefix sharding "
+                        "against the master's raft-committed shard map")
+    f.add_argument("-shard.peers", dest="shard_peers", default="",
+                   help="comma list of filer host:port addresses indexed "
+                        "by shard id (fallback when the committed map "
+                        "has not learned an owner yet)")
+    f.add_argument("-shard.splitMbps", dest="shard_split_mbps",
+                   type=float, default=8.0,
+                   help="token-bucket pacing for shard split/move "
+                        "migration batches (adopted by the -qos.mbps "
+                        "arbiter when present)")
+
+    fc = sub.add_parser("filer.copy",
+                        help="parallel-upload local files/trees to a filer")
+    fc.add_argument("paths", nargs="+",
+                    help="local files or directories, then the target "
+                         "http://filer:port/dir/ URL last")
+    fc.add_argument("-concurrency", type=int, default=8)
+    fc.add_argument("-include", default="",
+                    help="only copy names matching this glob (e.g. *.txt)")
+    fc.add_argument("-collection", default="")
+    fc.add_argument("-replication", default="")
+    fc.add_argument("-ttl", default="",
+                    help="time to live, e.g. 1m, 1h, 1d")
+
+    up = sub.add_parser("upload", help="upload files via assign+PUT")
+    _add_common(up)
+    up.add_argument("files", nargs="*", default=[])
+    up.add_argument("-collection", default="")
+    up.add_argument("-replication", default="")
+    up.add_argument("-ttl", default="")
+    up.add_argument("-dataCenter", default="")
+    up.add_argument("-dir", dest="updir", default="",
+                    help="upload this folder recursively (upload.go:35)")
+    up.add_argument("-include", default="",
+                    help="glob of names to upload, with -dir (e.g. *.pdf)")
+    up.add_argument("-maxMB", type=int, default=0,
+                    help="split files larger than this into a chunk "
+                         "manifest (0 = never split)")
+
+    dl = sub.add_parser("download", help="download a fid")
+    _add_common(dl)
+    dl.add_argument("fid")
+    dl.add_argument("-o", dest="output", default="")
+
+    bm = sub.add_parser("benchmark", help="write/read throughput benchmark")
+    _add_common(bm)
+    bm.add_argument("-n", type=int, default=1024)
+    bm.add_argument("-size", type=int, default=1024)
+    bm.add_argument("-c", dest="concurrency", type=int, default=16)
+    bm.add_argument("-collection", default="benchmark")
+    bm.add_argument("-replication", default="000")
+    bm.add_argument("-write", default="true", choices=("true", "false"),
+                    help="enable the write phase")
+    bm.add_argument("-read", default="true", choices=("true", "false"),
+                    help="enable the read phase")
+    bm.add_argument("-deletePercent", type=int, default=0,
+                    help="percent of writes immediately deleted again")
+    bm.add_argument("-list", dest="idList", default="",
+                    help="file of uploaded fids (written after the write "
+                         "phase; read phase loads it when -write=false)")
+    bm.add_argument("-readSequentially", nargs="?", const="true",
+                    default="false", choices=("true", "false"),
+                    help="read fids in list order instead of shuffled")
+    bm.add_argument("-readMode", default="",
+                    choices=("", "shuffle", "sequential", "zipf",
+                             "batch"),
+                    help="read-order distribution; zipf = repeated "
+                         "hot-key reads (the cache-effectiveness "
+                         "workload; overrides -readSequentially); "
+                         "batch = shuffled order over multi-needle "
+                         "/batch GETs")
+    bm.add_argument("-readN", type=int, default=0,
+                    help="total read requests (0 = one per fid); with "
+                         "-readMode zipf the same hot fids repeat")
+    bm.add_argument("-zipfS", type=float, default=1.1,
+                    help="zipf exponent for -readMode zipf")
+    bm.add_argument("-batchSize", type=int, default=0,
+                    help="reads per multi-needle /batch request; >0 "
+                         "batches ANY -readMode's order (-readMode "
+                         "batch implies 32); reports req/s and "
+                         "needles/s")
+    bm.add_argument("-pipeline", type=int, default=0,
+                    help="in-flight reads multiplexed per persistent "
+                         "binary frame connection (util/frame.py); >0 "
+                         "pipelines ANY -readMode's order depth-N over "
+                         "one frame socket per server per client "
+                         "(channel failures fall back to HTTP; a "
+                         "missing needle is fatal, like single GETs); "
+                         "mutually exclusive with -batchSize")
+
+    sc = sub.add_parser("scaffold", help="print example config TOML")
+    sc.add_argument("-config", default="security",
+                    choices=["security", "master", "filer",
+                             "notification", "replication"])
+
+    sub.add_parser("version", help="print version")
+
     sh = sub.add_parser("shell", help="admin shell (interactive or -c)")
     _add_common(sh)
     sh.add_argument("-c", dest="command", default="",
@@ -360,6 +499,35 @@ def _discover_security_toml() -> None:
         from .util import glog
         if tls.configure_from_toml(found[0], found[1]):
             glog.info("mTLS enabled from %s", found[0])
+
+
+def _discover_notification_queue():
+    """Discovered notification.toml (the scaffold's [notification.*]
+    enabled sections, configuration.go:24-58). Used by every command
+    that embeds a filer when -notify is not given; returns the one
+    enabled queue or None. Config errors exit cleanly like the -notify
+    flag path does."""
+    found = _find_config_toml("notification")
+    if found is None:
+        return None
+    path, cfg = found
+    from .notification.queues import load_configuration
+    try:
+        q = load_configuration(cfg.get("notification"))
+    except (ValueError, RuntimeError, KeyError) as e:
+        raise SystemExit(f"{path}: {e}")
+    if q is not None:
+        from .util import glog
+        glog.info("notification queue %s from %s", q.name, path)
+    return q
+
+
+def _attach_discovered_queue(filer) -> None:
+    q = _discover_notification_queue()
+    if q is not None:
+        from .notification.queues import attach_to_filer
+        attach_to_filer(filer, q)
+
 
 
 def init_daemon(args) -> None:
@@ -725,6 +893,224 @@ async def _run_volume(args) -> None:
             rec.cancel()
 
 
+def _store_kwargs(store: str, db_path: str) -> dict:
+    if store in ("sqlite", "sql"):
+        return {"path": db_path}
+    if store in ("leveldb", "leveldb2"):
+        return {"dir": db_path}
+    return {}
+
+
+async def start_filer(args):
+    """Start the filer process of parsed `filer` arguments: its store,
+    its notification queue (-notify, else a discovered
+    notification.toml) and its server; returns (server, recorder handle
+    or None). The caller stops the server and cancels the recorder."""
+    from .filer.filer import Filer
+    from .server.filer_server import FilerServer
+    from .stats import timeline
+    kwargs = _store_kwargs(args.store, args.dbPath)
+    # a store's ctor opens (and may replay) its database: off the loop
+    filer = await tracing.run_in_executor(
+        lambda: Filer(args.store, **kwargs))
+    if args.notify:
+        from .notification.queues import attach_to_filer
+        attach_to_filer(filer, await tracing.run_in_executor(
+            _make_queue, args.notify))
+    else:
+        await tracing.run_in_executor(_attach_discovered_queue, filer)
+    fs = FilerServer(filer, args.master,
+                     ip=args.ip, port=args.port,
+                     chunk_size=args.chunkSizeMB * 1024 * 1024,
+                     collection=args.collection,
+                     replication=args.replication,
+                     data_center=args.dataCenter,
+                     redirect_on_read=args.redirectOnRead,
+                     disable_dir_listing=args.disableDirListing,
+                     dir_list_limit=args.dirListLimit,
+                     cache_mem_bytes=args.cache_mem * 1024 * 1024,
+                     cache_dir=args.cache_dir,
+                     shard_id=args.shard_id, shard_of=args.shard_of,
+                     shard_peers={i: p.strip() for i, p in
+                                  enumerate(args.shard_peers.split(","))
+                                  if p.strip()},
+                     shard_split_mbps=args.shard_split_mbps)
+    await fs.start()
+    return fs, timeline.start_recorder()
+
+
+async def _run_filer(args) -> None:
+    fs, rec = await start_filer(args)
+    shard_note = (f", shard {args.shard_id}/{args.shard_of}"
+                  if args.shard_of > 1 else "")
+    print(f"filer listening on {fs.url} (store={args.store}"
+          f"{shard_note})", flush=True)
+    try:
+        await _serve_until_interrupt(fs)
+    finally:
+        if rec is not None:
+            rec.cancel()
+
+
+def _make_queue(spec: str):
+    from .notification.queues import queue_from_spec
+    try:
+        return queue_from_spec(spec)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+async def _run_filer_copy(args) -> None:
+    """Parallel tree upload to the filer HTTP surface
+    (reference: weed filer.copy, command/filer_copy.go)."""
+    import fnmatch
+
+    import aiohttp
+
+    *sources, dest = args.paths
+    if not dest.startswith("http"):
+        raise SystemExit("last argument must be the target "
+                         "http://filer:port/dir/ URL")
+    if not dest.endswith("/"):
+        dest += "/"
+
+    jobs: list[tuple[str, str]] = []  # (local path, remote rel path)
+    for src in sources:
+        if os.path.isdir(src):
+            base = os.path.basename(os.path.abspath(src))
+            walked = await tracing.run_in_executor(
+                _walk_upload_files, src, args.include)
+            for full in walked:
+                rel = os.path.join(base, os.path.relpath(full, src))
+                jobs.append((full, rel))
+        elif os.path.isfile(src):
+            if not args.include or fnmatch.fnmatch(
+                    os.path.basename(src), args.include):
+                jobs.append((src, os.path.basename(src)))
+        else:
+            raise SystemExit(f"no such file or directory: {src}")
+
+    import urllib.parse
+
+    sem = asyncio.Semaphore(args.concurrency)
+    copied = errors = 0
+    attr_params = {k: v for k, v in (
+        ("collection", args.collection),
+        ("replication", args.replication),
+        ("ttl", args.ttl)) if v}
+
+    async with tls.make_session() as http:
+        async def upload(local: str, rel: str) -> bool:
+            async with sem:
+                try:
+                    # hand the file object to FormData so aiohttp streams
+                    # it instead of holding whole files in memory; open
+                    # and close leave the loop — N concurrent uploads
+                    # share it
+                    f = await tracing.run_in_executor(open, local, "rb")
+                    try:
+                        form = aiohttp.FormData()
+                        form.add_field("file", f,
+                                       filename=os.path.basename(rel))
+                        target = dest + urllib.parse.quote(
+                            rel.replace(os.sep, "/"))
+                        async with http.post(target, data=form,
+                                             params=attr_params) as resp:
+                            if resp.status not in (200, 201):
+                                print(f"copy {local}: http {resp.status} "
+                                      f"{await resp.text()}")
+                                return False
+                    finally:
+                        await tracing.run_in_executor(f.close)
+                except (OSError, aiohttp.ClientError,
+                        asyncio.TimeoutError) as e:
+                    print(f"copy {local}: {e}")
+                    return False
+            return True
+
+        results = await asyncio.gather(
+            *(upload(l, r) for l, r in jobs))
+        copied = sum(results)
+        errors = len(results) - copied
+    print(f"copied {copied} files to {dest}"
+          + (f", {errors} errors" if errors else ""))
+    if errors:
+        raise SystemExit(1)
+
+
+def _walk_upload_files(dir_path: str, include: str) -> list[str]:
+    """Recursive -dir traversal filtered by the -include glob (shared by
+    upload and filer.copy; upload.go:35-36)."""
+    import fnmatch
+    if not os.path.isdir(dir_path):
+        raise SystemExit(f"no such directory: {dir_path}")
+    out = []
+    for root, _, names in os.walk(dir_path):
+        for name in sorted(names):
+            if include and not fnmatch.fnmatch(name, include):
+                continue
+            out.append(os.path.join(root, name))
+    return out
+
+
+def _read_file(path: str) -> bytes:
+    """Sync whole-file read, for executor round-trips off the loop."""
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _write_file(path: str, data: bytes) -> None:
+    """Sync whole-file write, for executor round-trips off the loop."""
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+async def _run_upload(args) -> None:
+    from .util.client import WeedClient
+    max_mb = getattr(args, "maxMB", 0) or 0
+    files = list(args.files)
+    if args.updir:
+        files.extend(await tracing.run_in_executor(
+            _walk_upload_files, args.updir, args.include))
+    if not files:
+        raise SystemExit("upload: no input files (pass paths or -dir)")
+    async with WeedClient(args.master) as c:
+        out = []
+        for path in files:
+            data = await tracing.run_in_executor(_read_file, path)
+            if max_mb > 0 and len(data) > max_mb * 1024 * 1024:
+                # auto-split into a chunk manifest (submit.go:112-199)
+                from .util.chunked import upload_in_chunks
+                fid, cm = await upload_in_chunks(
+                    c, data, max_mb, name=os.path.basename(path),
+                    collection=args.collection,
+                    replication=args.replication, ttl=args.ttl,
+                    data_center=args.dataCenter)
+                out.append({"fileName": os.path.basename(path),
+                            "fid": fid, "size": len(data),
+                            "chunks": len(cm.chunks),
+                            "fileUrl": await c.lookup_file_id(fid)})
+                continue
+            fid = await c.upload_data(data, collection=args.collection,
+                                      replication=args.replication,
+                                      ttl=args.ttl,
+                                      data_center=args.dataCenter)
+            out.append({"fileName": os.path.basename(path), "fid": fid,
+                        "size": len(data),
+                        "fileUrl": await c.lookup_file_id(fid)})
+        print(json.dumps(out, indent=2))
+
+
+async def _run_download(args) -> None:
+    from .util.client import WeedClient
+    async with WeedClient(args.master) as c:
+        data = await c.read(args.fid)
+    out = args.output or args.fid.replace(",", "_")
+    await tracing.run_in_executor(_write_file, out, data)
+    print(f"wrote {len(data)} bytes to {out}")
+
+
+
 async def _run_shell(args) -> None:
     from .shell.env import CommandEnv
     from .shell.runner import dispatch, run_command, HELP
@@ -753,6 +1139,335 @@ async def _run_shell(args) -> None:
                         print(json.dumps(res, indent=2, default=str))
                 except Exception as e:
                     print(f"error: {e}")
+
+
+class _RawConn:
+    """One persistent raw HTTP/1.1 connection for the benchmark loop.
+
+    The reference's benchmark client is a lean Go net/http loop
+    (command/benchmark.go); a full aiohttp ClientSession here would
+    measure the client's own parser, not the servers, on a single core."""
+
+    __slots__ = ("r", "w", "hostport", "_hdr")
+
+    @classmethod
+    async def open(cls, hostport: str) -> "_RawConn":
+        host, _, port = hostport.rpartition(":")
+        c = cls.__new__(cls)
+        c.hostport = hostport
+        c.r, c.w = await asyncio.open_connection(
+            host or "127.0.0.1", int(port), ssl=tls.client_ctx())
+        c._hdr = f"\r\nHost: {hostport}\r\n".encode()
+        return c
+
+    async def request(self, method: str, path: str, body: bytes = b"",
+                      ctype: str = "") -> tuple[int, bytes]:
+        head = method.encode() + b" " + path.encode() + b" HTTP/1.1" \
+            + self._hdr
+        if body or method in ("POST", "PUT"):
+            head += b"Content-Length: " + str(len(body)).encode() + b"\r\n"
+        if ctype:
+            head += b"Content-Type: " + ctype.encode() + b"\r\n"
+        self.w.write(head + b"\r\n" + body)
+        await self.w.drain()
+        hdr = await self.r.readuntil(b"\r\n\r\n")
+        status = int(hdr[9:12])
+        i = hdr.lower().find(b"content-length:")
+        cl = 0
+        if i >= 0:
+            cl = int(hdr[i + 15:hdr.index(b"\r\n", i)])
+        data = await self.r.readexactly(cl) if cl else b""
+        return status, data
+
+    def close(self) -> None:
+        try:
+            self.w.close()
+        except OSError:
+            pass  # already-dead socket: nothing left to release
+
+
+async def _run_benchmark(args) -> None:
+    """weed benchmark analog (command/benchmark.go): concurrent small-file
+    writes + reads with latency percentiles, over per-worker persistent
+    raw connections (see _RawConn)."""
+    import random
+
+    rng = random.Random(0)
+    payload = bytes(rng.getrandbits(8) for _ in range(args.size))
+    write_lat: list[float] = []
+    read_lat: list[float] = []
+    fids: list[str] = []
+    deletes = 0
+    do_write = args.write == "true"
+    do_read = args.read == "true"
+    if not do_write:
+        if not args.idList:
+            raise SystemExit("-write=false needs -list <fid file> "
+                             "from an earlier write run")
+        raw = await tracing.run_in_executor(_read_file, args.idList)
+        fids = [ln.strip() for ln in raw.decode().splitlines()
+                if ln.strip()]
+
+    master = args.master.split(",")[0]
+    assign_q = "/dir/assign"
+    qs = []
+    if args.collection:
+        qs.append(f"collection={args.collection}")
+    if args.replication:
+        qs.append(f"replication={args.replication}")
+    if qs:
+        assign_q += "?" + "&".join(qs)
+    vol_locs: dict[str, str] = {}       # vid -> host:port (lookup cache)
+    read_bytes = 0
+    wi = ri = 0                          # shared cursors (single loop)
+    # -batchSize / -readMode batch: reads ride multi-needle /batch GETs
+    batch_size = args.batchSize or (32 if args.readMode == "batch"
+                                    else 0)
+    pipeline = args.pipeline
+    if pipeline and batch_size:
+        raise SystemExit("-pipeline and -batchSize are mutually "
+                         "exclusive read transports")
+    read_reqs = 0                        # wire requests (batch != needle)
+    needles_read = 0
+    frame_fallbacks = 0                  # pipeline reads downgraded to HTTP
+
+    async def lookup(mconn: _RawConn, vid: str) -> str:
+        url = vol_locs.get(vid)
+        if url is None:
+            st, body = await mconn.request(
+                "GET", f"/dir/lookup?volumeId={vid}")
+            if st != 200:
+                raise RuntimeError(f"lookup {vid}: {st}")
+            url = json.loads(body)["locations"][0]["url"]
+            vol_locs[vid] = url
+        return url
+
+    async def worker(phase: str, order: list[str]) -> None:
+        nonlocal deletes, read_bytes, wi, ri, read_reqs, needles_read
+        nonlocal frame_fallbacks
+        mconn = await _RawConn.open(master)
+        vconns: dict[str, _RawConn] = {}
+        fchannels: dict[str, object] = {}
+
+        async def vconn(hostport: str) -> _RawConn:
+            c = vconns.get(hostport)
+            if c is None:
+                c = vconns[hostport] = await _RawConn.open(hostport)
+            return c
+
+        def fchannel(hostport: str):
+            ch = fchannels.get(hostport)
+            if ch is None:
+                from .util.frame import FrameChannel
+                ch = fchannels[hostport] = FrameChannel(
+                    target=hostport, ssl=tls.client_ctx())
+            return ch
+
+        try:
+            while True:
+                if phase == "write":
+                    if wi >= args.n:
+                        return
+                    wi += 1
+                    t0 = time.perf_counter()
+                    st, body = await mconn.request("GET", assign_q)
+                    if st != 200:
+                        raise RuntimeError(f"assign: {body[:200]!r}")
+                    a = json.loads(body)
+                    fid = a["fid"]
+                    vc = await vconn(a["url"])
+                    path = "/" + fid
+                    auth = a.get("auth", "")
+                    if auth:
+                        # JWT rides as a query param the server accepts
+                        path += "?jwt=" + auth
+                    st, body = await vc.request("POST", path, payload)
+                    if st not in (200, 201):
+                        raise RuntimeError(f"upload {fid}: {st} "
+                                           f"{body[:200]!r}")
+                    # sample BEFORE any delete: the write percentiles
+                    # must measure writes, not write+delete round trips
+                    write_lat.append(time.perf_counter() - t0)
+                    # random sampling like the reference (rand.Intn(100)):
+                    # a modulo scheme front-loads deletes and skews the
+                    # rate whenever n is not a multiple of 100
+                    if args.deletePercent > 0 and \
+                            rng.randrange(100) < args.deletePercent:
+                        await vc.request("DELETE", "/" + fid)
+                        deletes += 1
+                    else:
+                        fids.append(fid)
+                elif pipeline:
+                    if ri >= len(order):
+                        return
+                    group = order[ri:ri + pipeline]
+                    ri += len(group)
+                    by_server: dict[str, list[str]] = {}
+                    for fid in group:
+                        by_server.setdefault(
+                            await lookup(mconn, fid.split(",")[0]),
+                            []).append(fid)
+                    from .util.frame import FrameChannelError
+                    for server, fids_here in by_server.items():
+                        ch = fchannel(server)
+                        failed: list[str] = []
+
+                        async def one(fid: str) -> None:
+                            nonlocal read_bytes, needles_read
+                            nonlocal read_reqs
+                            t0 = time.perf_counter()
+                            try:
+                                st, _, data = await ch.request(
+                                    "GET", "/" + fid)
+                            except (FrameChannelError, OSError):
+                                failed.append(fid)
+                                return
+                            read_lat.append(time.perf_counter() - t0)
+                            if st != 200:
+                                raise RuntimeError(
+                                    f"pipelined read {fid}: {st}")
+                            read_reqs += 1
+                            needles_read += 1
+                            read_bytes += len(data)
+
+                        # depth-`pipeline` window: every request is in
+                        # flight on ONE multiplexed frame connection
+                        await asyncio.gather(*(one(f)
+                                               for f in fids_here))
+                        # channel-level failures ride HTTP, serially on
+                        # this worker's keep-alive conn (rare path)
+                        for fid in failed:
+                            frame_fallbacks += 1
+                            vc = await vconn(server)
+                            t0 = time.perf_counter()
+                            st, data = await vc.request("GET", "/" + fid)
+                            if st != 200:
+                                raise RuntimeError(f"read {fid}: {st}")
+                            read_lat.append(time.perf_counter() - t0)
+                            read_reqs += 1
+                            needles_read += 1
+                            read_bytes += len(data)
+                elif batch_size:
+                    if ri >= len(order):
+                        return
+                    group = order[ri:ri + batch_size]
+                    ri += len(group)
+                    # one /batch request per holding server (single
+                    # server in this harness, but correct regardless)
+                    by_server: dict[str, list[str]] = {}
+                    for fid in group:
+                        by_server.setdefault(
+                            await lookup(mconn, fid.split(",")[0]),
+                            []).append(fid)
+                    from .util.batchframe import parse_all
+                    for server, fids_here in by_server.items():
+                        vc = await vconn(server)
+                        t0 = time.perf_counter()
+                        st, data = await vc.request(
+                            "GET", "/batch?fids=" + ",".join(fids_here))
+                        read_lat.append(time.perf_counter() - t0)
+                        if st != 200:
+                            raise RuntimeError(f"batch read: {st} "
+                                               f"{data[:200]!r}")
+                        read_reqs += 1
+                        for meta, body in parse_all(data):
+                            if meta.get("status") != 200:
+                                raise RuntimeError(
+                                    f"batch row {meta.get('fid')}: "
+                                    f"{meta.get('status')}")
+                            needles_read += 1
+                            read_bytes += len(body)
+                else:
+                    if ri >= len(order):
+                        return
+                    fid = order[ri]
+                    ri += 1
+                    t0 = time.perf_counter()
+                    vc = await vconn(
+                        await lookup(mconn, fid.split(",")[0]))
+                    st, data = await vc.request("GET", "/" + fid)
+                    if st != 200:
+                        raise RuntimeError(f"read {fid}: {st}")
+                    read_lat.append(time.perf_counter() - t0)
+                    read_bytes += len(data)
+                    read_reqs += 1
+                    needles_read += 1
+        finally:
+            mconn.close()
+            for c in vconns.values():
+                c.close()
+            for ch in fchannels.values():
+                await ch.close()
+
+    wdt = 0.0
+    if do_write:
+        t0 = time.perf_counter()
+        await asyncio.gather(*(worker("write", [])
+                               for _ in range(args.concurrency)))
+        wdt = time.perf_counter() - t0
+        if args.idList:
+            await tracing.run_in_executor(
+                _write_file, args.idList,
+                ("\n".join(fids) + "\n").encode())
+
+    rdt = 0.0
+    n_reads = 0
+    if do_read and fids:
+        mode = args.readMode or ("sequential"
+                                 if args.readSequentially == "true"
+                                 else "shuffle")
+        if mode == "zipf":
+            # zipf over a shuffled ranking: rank r drawn with weight
+            # 1/r^s, so a small hot set dominates — the classic
+            # read-mostly object-store mix the caches target
+            ranked = list(fids)
+            rng.shuffle(ranked)
+            weights = [1.0 / (r + 1) ** args.zipfS
+                       for r in range(len(ranked))]
+            order = rng.choices(ranked, weights=weights,
+                                k=args.readN or len(ranked))
+        elif mode == "sequential":
+            order = list(fids)
+        else:
+            order = list(fids)
+            rng.shuffle(order)
+        n_reads = len(order)
+        t0 = time.perf_counter()
+        await asyncio.gather(*(worker("read", order)
+                               for _ in range(args.concurrency)))
+        rdt = time.perf_counter() - t0
+
+    def pct(xs, p):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(p / 100 * len(xs)))] * 1e3
+
+    if do_write:
+        print(f"write: {args.n / wdt:.1f} req/s, "
+              f"{args.n * args.size / wdt / 1024:.1f} KB/s"
+              + (f" ({deletes} deletes)" if deletes else ""))
+        print(f"  latency ms p50/p95/p99/max: {pct(write_lat, 50):.1f}/"
+              f"{pct(write_lat, 95):.1f}/{pct(write_lat, 99):.1f}/"
+              f"{max(write_lat) * 1e3:.1f}")
+    if do_read and fids:
+        # measured bytes, not -size: a -write=false run may read fids
+        # written with a different size
+        print(f"read:  {read_reqs / rdt:.1f} req/s, "
+              f"{read_bytes / rdt / 1024:.1f} KB/s")
+        if batch_size:
+            # the amortization headline: needles served per second vs
+            # wire round trips spent serving them
+            print(f"  needles/s: {needles_read / rdt:.1f} "
+                  f"(batch={batch_size}, {needles_read} needles over "
+                  f"{read_reqs} requests)")
+        if pipeline:
+            # the overlap headline: depth-N multiplexed frames on one
+            # socket per server, no round-trip wait per needle
+            print(f"  needles/s: {needles_read / rdt:.1f} "
+                  f"(pipeline={pipeline} over frames, "
+                  f"{frame_fallbacks} HTTP fallbacks)")
+        print(f"  latency ms p50/p95/p99/max: {pct(read_lat, 50):.1f}/"
+              f"{pct(read_lat, 95):.1f}/{pct(read_lat, 99):.1f}/"
+              f"{max(read_lat) * 1e3:.1f}")
 
 
 async def _run_backup(args) -> None:
@@ -969,6 +1684,97 @@ def _run_compact(args) -> None:
     v.close()
 
 
+_SCAFFOLDS = {
+    "security": """# security.toml (reference: weed scaffold -config=security)
+[jwt.signing]
+key = ""            # base64 or raw secret; empty disables write tokens
+expires_after_seconds = 10
+
+[tls]
+# mutual TLS for the inter-server mesh (master + volume servers), like the
+# reference's [grpc.*] sections (weed/security/tls.go). Client-facing
+# surfaces (filer HTTP, S3, WebDAV) stay plaintext + JWT so standard
+# clients keep working. All three paths required.
+ca = ""             # CA certificate that signed every server cert
+cert = ""           # this process's certificate
+key = ""            # this process's private key
+require_client_cert = true
+""",
+    "master": """# master.toml
+[master.maintenance]
+scripts = \"\"\"
+  ec.encode -fullPercent=95 -quietFor=1h
+  ec.rebuild -force
+  ec.balance -force
+  volume.balance -force
+  # parity scrub reads every EC stripe — run it on its own master.toml
+  # with a long sleep_minutes (e.g. daily), not every cycle:
+  # ec.verify -collection important
+\"\"\"
+sleep_minutes = 17
+[master.sequencer]
+type = "memory"
+""",
+    "filer": """# filer.toml
+[memory]
+enabled = false
+[sqlite]
+enabled = true
+path = "./filer.db"
+""",
+    "notification": """# notification.toml (weed scaffold -config=notification)
+# exactly ONE queue may be enabled; the filer publishes an
+# EventNotification per meta change to it (filer_notify.go:9-31)
+
+[notification.log]
+enabled = false
+
+[notification.file]
+enabled = false
+path = "./filer.events"
+
+[notification.sqlite]
+enabled = false
+path = "./filer.events.db"
+
+[notification.kafka]
+enabled = false
+hosts = ["localhost:9092"]
+topic = "seaweedfs_filer"
+
+[notification.aws_sqs]
+enabled = false
+region = "us-east-2"
+sqs_queue_name = "my_sqs_queue"
+
+[notification.google_pub_sub]
+enabled = false
+project_id = ""
+topic = "seaweedfs_filer_topic"
+""",
+    "replication": """# replication.toml (weed scaffold -config=replication)
+# Consumed by `weed-tpu filer.replicate` when the corresponding flags
+# are not given. Every key maps 1:1 to a flag (see -h).
+
+[replication]
+# -notify: subscription input
+#   file:<path> | sqlite:<path> | kafka:<hosts>/<topic>[@offsets] |
+#   sqs:<region>/<queue> | pubsub:<project>/<topic>
+notify = "file:./filer.events"
+# -sourceMaster / -sourceDir: cluster + subtree the events refer to
+sourceMaster = "localhost:9333"
+sourceDir = "/"
+# -sink / -sinkDir: replication target
+#   filer:<filerHost:port>@<targetMaster> | s3:<endpointUrl>/<bucket>
+#   | local:<dir>
+sink = "local:/data/backup"
+sinkDir = "/"
+# -progress: consumed-offset checkpoint file (resume-after-restart)
+progress = "./replicate.progress"
+""",
+}
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     # the worker supervisor re-executes this same command line with
@@ -980,16 +1786,29 @@ def main(argv: list[str] | None = None) -> None:
     if env_off:
         from .storage import types as _types
         _types.set_offset_size(int(env_off))
-    if args.cmd in ("master", "volume", "shell"):
+    if hasattr(args, "verbosity"):
         init_daemon(args)
     _discover_security_toml()
+    if args.cmd == "version":
+        from . import __version__
+        print(f"seaweedfs_tpu_torch {__version__}")
+        return
+    if args.cmd == "scaffold":
+        try:
+            print(_SCAFFOLDS[args.config])
+        except BrokenPipeError:
+            os._exit(0)
+        return
     offline = {"fix": _run_fix, "export": _run_export,
                "compact": _run_compact}
     if args.cmd in offline:
         offline[args.cmd](args)
         return
     runners = {"master": _run_master, "volume": _run_volume,
-               "shell": _run_shell, "backup": _run_backup}
+               "filer": _run_filer, "filer.copy": _run_filer_copy,
+               "upload": _run_upload, "download": _run_download,
+               "benchmark": _run_benchmark, "shell": _run_shell,
+               "backup": _run_backup}
     try:
         asyncio.run(runners[args.cmd](args))
     except KeyboardInterrupt:

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 
 from . import gf
+from .encoder_cpu import CpuEncoder
+from .encoder_torch import TorchEncoder
 
 # windows gathered per transform dispatch (the REQUESTED width; the
 # resident-memory ceiling is clamp_batch_windows below)
@@ -69,10 +71,19 @@ def transform_block_async(encoder, coeff: np.ndarray, block: np.ndarray,
     (B, rows, L) numpy result. On CUDA the launch is asynchronous and
     the thunk waits on the stream event recorded after the copy back
     into a pinned host buffer, so the caller can overlap the NEXT
-    block's preads with this block's device time."""
+    block's preads with this block's device time. The host CpuEncoder
+    computes eagerly and the thunk is a no-op, as in
+    `pipeline._transform_buffers_async`; any other encoder raises
+    TypeError."""
     block = np.asarray(block, np.uint8)
     add_stat(stats, dispatches=1, batches=1, windows=int(block.shape[0]),
              bytes_in=int(block.nbytes))
+    if isinstance(encoder, CpuEncoder):
+        out = encoder.transform_batch(coeff, block)
+        return lambda: out
+    if not isinstance(encoder, TorchEncoder):
+        raise TypeError(f"the port's pipeline runs a TorchEncoder or a "
+                        f"CpuEncoder, got {type(encoder).__name__}")
     return encoder.transform_async(coeff, block)
 
 

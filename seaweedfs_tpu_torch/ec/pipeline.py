@@ -128,11 +128,12 @@ def _iter_row_batches(dat_size: int, large_block: int, small_block: int,
         remaining -= small_block * gf.DATA_SHARDS
 
 
-def _use_overlap(encoder: TorchEncoder) -> bool:
+def _use_overlap(encoder) -> bool:
     """Thread overlap pays only when the launch is asynchronous: a CUDA
-    TorchEncoder. On the CPU the transform is eager, and the plain
-    serial loop wins."""
-    return encoder.device.type == "cuda"
+    TorchEncoder. On the CPU (the plain version, or the host CpuEncoder)
+    the transform is eager, and the plain serial loop wins."""
+    return isinstance(encoder, TorchEncoder) and \
+        encoder.device.type == "cuda"
 
 
 def _run_overlapped(read_batches, launch, write_result,

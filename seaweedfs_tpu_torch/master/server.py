@@ -6,12 +6,7 @@ of location deltas), master_server_handlers.go:96-137 (assign + on-demand
 volume growth). gRPC streams become HTTP POST heartbeats + an SSE watch
 stream over the asyncio mesh.
 
-A copy of seaweedfs_tpu/master/server.py in the PyTorch port, with one
-change: a handler that reaches a module not ported yet answers 500 with
-the ImportError that names the seaweedfs_tpu_torch module
-(util/unported.py). What it guards is the filer shard map: every method
-of /cluster/shards and /debug/shards needs filer/shard.py, which comes
-with the filer.
+A copy of seaweedfs_tpu/master/server.py in the PyTorch port.
 """
 
 from __future__ import annotations
@@ -32,7 +27,7 @@ from ..topology.layout import (LayoutKey, PlacementError, VolumeLayout,
                                find_empty_slots)
 from ..topology.tree import DataNode, Topology
 from ..security import tls
-from ..util import failpoints, glog, tracing, unported
+from ..util import failpoints, glog, tracing
 from .election import Election
 from .sequence import (MemorySequencer, RaftSequencer, SequenceBehind,
                        SequenceUnavailable)
@@ -197,8 +192,7 @@ class MasterServer:
                              and not (req.path == "/dir/lookup"
                                       and self._is_peer(
                                           self._remote(req)))),
-                remote_of=self._remote),
-                unported.middleware])
+                remote_of=self._remote)])
         app.router.add_route("*", "/dir/assign", self.h_assign)
         app.router.add_route("*", "/dir/lookup", self.h_lookup)
         app.router.add_get("/dir/status", self.h_dir_status)

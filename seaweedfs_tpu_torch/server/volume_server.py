@@ -7,17 +7,13 @@ replication), volume_grpc_client_to_master.go:23-177 (heartbeat loop w/
 leader chasing), volume_grpc_erasure_coding.go (EC shard lifecycle RPCs),
 topology/store_replicate.go (replica fan-out).
 
-The port of seaweedfs_tpu/server/volume_server.py, a copy with three
+The port of seaweedfs_tpu/server/volume_server.py, a copy with two
 changes: the EC handlers run the port's EC engine, which
 SWTPU_TORCH_EC_BACKEND picks (the CLI's -ecBackend: gpu, the CUDA
 kernel, or cpu, its plain PyTorch version; SWTPU_TORCH_EC_METHOD=mxu
 sends its batched and recover transforms through the GF(2) bit-matrix
-product); start() resolves the port's native host library off the event
-loop; and a handler that reaches a module not ported yet answers 500
-with the ImportError that names the seaweedfs_tpu_torch module
-(util/unported.py). Every handler of the reference is ported; what the
-middleware still guards is util/client.py's filer route cache, which
-needs filer/shard.py.
+product); and start() resolves the port's native host library off the
+event loop.
 """
 
 from __future__ import annotations
@@ -39,7 +35,7 @@ from ..ec import gf
 from ..ec import pipeline as ecpl
 from ..ec.ec_volume import EcVolumeError
 from ..pb import messages as pb
-from ..util import batchframe, failpoints, glog, tracing, unported
+from ..util import batchframe, failpoints, glog, tracing
 from ..util.resilience import BreakerRegistry
 from ..storage import types as t
 from ..storage.needle import CrcMismatch, Needle, NeedleError
@@ -319,8 +315,7 @@ class VolumeServer:
         from ..security.guard import middleware as guard_mw
         middlewares = [self._trace_mw,
                        guard_mw(lambda: self.guard,
-                                self._guarded_request),
-                       unported.middleware]
+                                self._guarded_request)]
         if self.worker_ctx is not None:
             middlewares.append(self._worker_route_mw)
         app = web.Application(

@@ -4,9 +4,7 @@ Reference: weed/shell/command_fs_ls.go, _cat.go, _du.go, _tree.go, _mv.go,
 command_fs_meta_save.go/_load.go (filer metadata backup/restore to a pb
 file — here JSON-lines), command_collection_list.go/_delete.go.
 
-A copy of seaweedfs_tpu/shell/fs_commands.py in the PyTorch port, less
-fs.meta.notify, which answers "not ported yet" (it needs the filer and
-the notification queues).
+A copy of seaweedfs_tpu/shell/fs_commands.py in the PyTorch port.
 """
 
 from __future__ import annotations
@@ -17,10 +15,6 @@ import posixpath
 from ..security import tls
 from ..util import tracing
 from .env import CommandEnv
-
-NOTIFY_NOT_PORTED = ("fs.meta.notify: not ported yet (needs "
-                     "seaweedfs_tpu_torch.filer.entry and "
-                     "seaweedfs_tpu_torch.notification.queues)")
 
 
 def _filer_url(filer: str, path: str) -> str:
@@ -210,17 +204,45 @@ async def fs_meta_cat(env: CommandEnv, filer: str, path: str) -> dict:
         return body
 
 
+def _api_to_entry_dict(e: dict) -> dict:
+    """FilerServer._entry_json wire shape -> filer Entry.to_dict shape
+    (what EventNotification payloads carry, pb/filer.proto analog)."""
+    return {
+        "full_path": e["FullPath"],
+        "attr": {
+            "mtime": e.get("Mtime", 0), "crtime": e.get("Crtime", 0),
+            "mode": e.get("Mode", 0o660),
+            "uid": e.get("Uid", 0), "gid": e.get("Gid", 0),
+            "mime": e.get("Mime", ""),
+            "replication": e.get("Replication", ""),
+            "collection": e.get("Collection", ""),
+            "ttl_sec": e.get("TtlSec", 0),
+        },
+        "chunks": e.get("chunks", []),
+        "extended": e.get("extended", {}),
+    }
+
+
 async def fs_meta_notify(env: CommandEnv, filer: str, path: str,
                          queue) -> dict:
     """Re-publish create events for a whole subtree into a notification
     queue, so a replicator can be primed with data that predates the
     queue (command_fs_meta_notify.go). Events go through the same
     event_of producer the live filer listeners use, so the wire shape
-    cannot drift from what Replicator consumes.
+    cannot drift from what Replicator consumes."""
+    from ..filer.entry import Entry
+    from ..notification.queues import event_of
 
-    Not ported yet: it needs the filer's Entry and the notification
-    queues (filer/entry.py, notification/queues.py)."""
-    raise RuntimeError(NOTIFY_NOT_PORTED)
+    dirs = files = 0
+    async for e, _ in _walk(env, filer, path):
+        entry = Entry.from_dict(_api_to_entry_dict(e))
+        queue.send_message(e["FullPath"],
+                           event_of(None, entry, delete_chunks=False))
+        if _is_dir(e):
+            dirs += 1
+        else:
+            files += 1
+    return {"notified_dirs": dirs, "notified_files": files}
 
 
 async def collection_list(env: CommandEnv) -> list[str]:

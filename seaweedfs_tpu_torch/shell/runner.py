@@ -2,8 +2,7 @@
 
 Reference: weed/shell/commands.go registry + shell_liner.go REPL.
 
-A copy of seaweedfs_tpu/shell/runner.py in the PyTorch port; fs.meta.notify
-answers "not ported yet".
+A copy of seaweedfs_tpu/shell/runner.py in the PyTorch port.
 """
 
 from __future__ import annotations
@@ -239,11 +238,19 @@ async def dispatch(env: CommandEnv, line: str) -> object:
                 raise ValueError("fs.meta.cat requires -path")
             res = await fs.fs_meta_cat(env, filer, path)
         elif cmd == "fs.meta.notify":
+            from ..notification.queues import queue_from_spec
+            from ..util import tracing
             if "notify" not in flags:
                 raise ValueError("fs.meta.notify requires "
                                  "-notify file:<p>|sqlite:<p>|log")
-            # the notification queues are not in the port yet
-            raise RuntimeError(fs.NOTIFY_NOT_PORTED)
+            # FileQueue's ctor makedirs/creates its backing file — off
+            # the loop, the shell may be driving live-cluster commands
+            queue = await tracing.run_in_executor(
+                queue_from_spec, flags["notify"])
+            try:
+                res = await fs.fs_meta_notify(env, filer, path, queue)
+            finally:
+                queue.close()
         elif cmd == "fs.meta.save":
             res = await fs.fs_meta_save(env, filer, path,
                                         flags.get("o", "meta.jsonl"))

@@ -26,11 +26,7 @@ util/events.merge_payloads, stats/slo.health_dict): sum rates and
 histogram buckets, MAX the ``NON_ADDITIVE_GAUGE_PREFIXES``, recompute
 quantiles from merged buckets — never average.
 
-A copy of seaweedfs_tpu/stats/introspect.py in the PyTorch port, with one
-change: :func:`cluster_nodes` reads the filer owners from the master's
-committed shard map (``ms.shard_map``, None until a map is committed)
-instead of ``ms._shard_map_dict()``, which needs filer/shard.py, not in
-the port yet; the unsharded default that module builds has no owners.
+A copy of seaweedfs_tpu/stats/introspect.py in the PyTorch port.
 """
 
 from __future__ import annotations
@@ -110,7 +106,7 @@ def cluster_nodes(ms, extra: str = "") -> "list[dict]":
         seen.add(n.url)
         nodes.append({"node": n.url, "kind": "volume",
                       "prefix": "/debug"})
-    owners = ((ms.shard_map or {}).get("owners") or {})
+    owners = (ms._shard_map_dict().get("owners") or {})
     for sid in sorted(owners, key=lambda s: int(s)):
         addr = owners[sid]
         if addr in seen:

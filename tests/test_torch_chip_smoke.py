@@ -565,3 +565,69 @@ def test_cluster_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
     assert chip_smoke.check_store_counts(seen, "cluster path") \
         == sum(exp.values())
     assert not os.path.exists(chip_smoke.CLUSTER_DIR)
+
+
+def test_filer_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 12 on a tree of a few MiB on the CPU: a port master, two port
+    volume servers (-ecBackend cpu) and a port filer in this process,
+    the tree through `cli filer.copy` in a subprocess that imports no
+    jax, listings, reads and Range GETs intact, ec.encode of the filer's
+    volume, 4 shards lost, a filer restart on its sqlite store, and the
+    degraded reads. Chunks of 2 MiB and large files of 2-6 MiB stand in
+    for 32 MiB and 1-96 MiB, so that files span chunks and whole 1 MiB
+    blocks are recovered. As in the cluster rehearsal, the encoder's
+    calls of the kernel's wrapper are counted in the wrapper's counter:
+    each step is held to its count from the .ecx and to filer_prediction,
+    the reckoning from the seed alone."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+    from seaweedfs_tpu_torch.ec import encoder_torch
+    from seaweedfs_tpu_torch.ops import gf256_cuda
+
+    mib = chip_smoke.MIB
+    monkeypatch.setattr(chip_smoke, "FILER_LARGE", (2 * mib, 6 * mib))
+    monkeypatch.setattr(chip_smoke, "FILER_DIR",
+                        os.path.join(REPO, ".smoke_filer_rehearsal"))
+    transform = encoder_torch.gf256_transform
+
+    def counting(consts, x):
+        out = transform(consts, x)
+        gf256_cuda.count_launch()
+        return out
+
+    monkeypatch.setattr(encoder_torch, "gf256_transform", counting)
+    seen = chip_smoke.phase_filer(torch.device("cpu"), 5, 10 * mib,
+                                  backend="cpu", chunk_mb=2)
+    exp = seen["expected"]
+    assert chip_smoke.check_store_counts(seen, "filer path") \
+        == sum(exp.values())
+    assert exp["GET degraded"] == seen["split"][1] > 0 and seen["split"][0] > 0
+    assert exp["ec.encode"] >= 1 and exp["Range degraded"] >= 1
+    assert tuple(seen["lost"]) == chip_smoke.FILER_LOST
+    predicted = chip_smoke.filer_prediction(5, 10 * mib, chunk=2 * mib)
+    assert chip_smoke.within_prediction(seen["launches"], predicted)
+    assert predicted["ec.encode"] == exp["ec.encode"]
+    lo, hi = predicted["GET degraded"]
+    assert lo <= exp["GET degraded"] <= hi and lo < hi
+    assert not os.path.exists(chip_smoke.FILER_DIR)
+
+
+def test_filer_prediction_bounds_every_offset():
+    """record_recover_bounds is the least and the most of
+    full_blocks_lost over every 8-byte-aligned offset in a row, for
+    records under, at and over a block and over several blocks."""
+    import chip_smoke
+    mib = chip_smoke.MIB
+    lost = chip_smoke.FILER_LOST
+    row = 10 * mib
+    for record in (mib - 8, mib, mib + 40, 3 * mib + 24, 32 * mib + 48):
+        counts = [chip_smoke.full_blocks_lost(o, record, lost)
+                  for o in range(0, row, 4096)]
+        counts += [chip_smoke.full_blocks_lost(o, record, lost)
+                   for b in range(11) for o in
+                   (b * mib - 8, b * mib, b * mib + 8,
+                    b * mib - record - 8, b * mib - record,
+                    b * mib - record + 8) if 0 <= o < row]
+        assert chip_smoke.record_recover_bounds(record, lost) == \
+            (min(counts), max(counts)), record

@@ -6,7 +6,9 @@ The port of tests/cluster_util.py: one `seaweedfs_tpu_torch`
 loop, every one bound to port 0. A parity test of the wire passes the
 JAX package's classes instead (`master_cls`, or `volume_cls` with
 `store_cls`), so the same harness runs a reference master over port
-volume servers, or reference volume servers under a port master. While
+volume servers, or reference volume servers under a port master. Set
+`with_filer` before entering for a port `FilerServer` on a memory
+`Filer`. While
 the cluster is up, SWTPU_TORCH_EC_BACKEND is `cpu`, so the port's EC
 handlers run the kernel's plain PyTorch version on this host, and torch
 runs its CPU operators on one thread: several test processes share the
@@ -25,13 +27,16 @@ import aiohttp
 import torch
 
 from seaweedfs_tpu_torch.ec.pipeline import BACKEND_ENV
+from seaweedfs_tpu_torch.filer.filer import Filer
 from seaweedfs_tpu_torch.master.server import MasterServer
+from seaweedfs_tpu_torch.server.filer_server import FilerServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.storage.store import Store
 
 
 class Cluster:
-    """Port master + N port volume servers on ephemeral ports."""
+    """Port master + N port volume servers (+ a port filer) on
+    ephemeral ports."""
 
     def __init__(self, tmpdir: str, n_servers: int = 3,
                  racks: list[tuple[str, str]] | None = None,
@@ -53,6 +58,9 @@ class Cluster:
         self.store_cls = store_cls
         self.master = None
         self.servers: list = []
+        self.filer = None
+        self.with_filer = False
+        self.filer_chunk_size = 256 * 1024
         self.http: aiohttp.ClientSession | None = None
         self.master_kwargs = master_kwargs or {}
         self._env: str | None = None
@@ -80,6 +88,11 @@ class Cluster:
             await vs.start()
             await vs.heartbeat_once()
             self.servers.append(vs)
+        if self.with_filer:
+            self.filer = FilerServer(Filer("memory"), self.master.url,
+                                     port=0,
+                                     chunk_size=self.filer_chunk_size)
+            await self.filer.start()
         self.http = aiohttp.ClientSession(
             timeout=aiohttp.ClientTimeout(total=30))
         return self
@@ -87,6 +100,9 @@ class Cluster:
     async def __aexit__(self, *exc) -> None:
         if self.http:
             await self.http.close()
+        if self.filer:
+            with contextlib.suppress(Exception):
+                await self.filer.stop()
         for vs in self.servers:
             with contextlib.suppress(Exception):
                 await vs.stop()

@@ -143,8 +143,9 @@ class _FakeMaster:
         def all_nodes():
             return [_FakeNode("v0:8080"), _FakeNode("v1:8080")]
 
-    shard_map = {"owners": {"1": "f1:8888", "0": "f0:8888",
-                            "2": "f0:8888"}}
+    def _shard_map_dict(self):
+        return {"owners": {"1": "f1:8888", "0": "f0:8888",
+                           "2": "f0:8888"}}
 
 
 def test_cluster_nodes_enumeration_dedupe_and_extra():
@@ -161,6 +162,32 @@ def test_cluster_nodes_enumeration_dedupe_and_extra():
     assert prefixes["f0:8888"] == "/__debug__"
     assert prefixes["gw:8333"] == "/__debug__"
     assert prefixes["v0:8080"] == "/debug"
+
+
+def test_cluster_nodes_equals_the_reference_on_one_shard_map():
+    """The same two masters as the parity tests (equal heartbeats), each
+    with filers registered in its committed shard map through POST
+    /cluster/shards: the port's cluster_nodes and the reference's list
+    the same nodes, each master's own address masked."""
+    from seaweedfs_tpu.stats import introspect as ref_introspect
+    from test_torch_master_parity import _norm, _with_masters
+
+    async def body(http, ref, port):
+        for sid, url in ((1, "f1:8888"), (0, "f0:8888"), (2, "f0:8888")):
+            for m in (ref, port):
+                async with http.post(
+                        f"http://{m.url}/cluster/shards",
+                        json={"op": "register", "shard": sid,
+                              "url": url}) as r:
+                    assert r.status == 200, await r.text()
+        extra = "s3:gw:8333,wd:9999"
+        want = _norm(ref_introspect.cluster_nodes(ref, extra=extra),
+                     ref.url)
+        got = _norm(introspect.cluster_nodes(port, extra=extra), port.url)
+        assert got == want
+        assert [n["node"] for n in got if n["kind"] == "filer"] == \
+            ["f0:8888", "f1:8888"]
+    run(_with_masters(1, body))
 
 
 # ---------------------------------------------------------------------------

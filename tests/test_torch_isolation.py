@@ -43,16 +43,34 @@ def test_forbidden_prefix_rule():
     assert not _forbidden("seaweedfs_tpu_torch.ec.gf")
 
 
+# the filer stores whose module imports its client library at the top,
+# as the reference's do: without the library the import fails, and
+# filerstore._load_builtin leaves the store unregistered
+GATED_STORES = {"seaweedfs_tpu_torch.filer.stores.redis_store": "redis",
+                "seaweedfs_tpu_torch.filer.stores.etcd_store": "etcd3",
+                "seaweedfs_tpu_torch.filer.stores.cassandra_store":
+                    "cassandra",
+                "seaweedfs_tpu_torch.filer.stores.tikv_store":
+                    "tikv_client"}
+
+
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     mods = [_module_name(p) for p in _port_files()]
     code = (
         "import importlib, json, sys\n"
+        "gated = {}\n"
         f"for m in {mods!r}:\n"
-        "    importlib.import_module(m)\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        f"    except ImportError as e:\n"
+        f"        if m not in {sorted(GATED_STORES)!r}:\n"
+        "            raise\n"
+        "        gated[m] = e.name\n"
         "from seaweedfs_tpu_torch.ops import _build\n"
         "from seaweedfs_tpu_torch.native import build as native\n"
         "import torch.distributed as dist\n"
         "print(json.dumps({'modules': sorted(sys.modules),\n"
+        "                  'gated': gated,\n"
         "                  'loaded': sorted(_build._loaded),\n"
         "                  'native': native.loaded(),\n"
         "                  'group': dist.is_initialized()}))\n")
@@ -89,8 +107,25 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.autopilot.controller",
                 "seaweedfs_tpu_torch.shell.runner",
                 "seaweedfs_tpu_torch.stats.introspect",
-                "seaweedfs_tpu_torch.util.masterclient"):
+                "seaweedfs_tpu_torch.util.masterclient",
+                "seaweedfs_tpu_torch.filer.entry",
+                "seaweedfs_tpu_torch.filer.filechunks",
+                "seaweedfs_tpu_torch.filer.stream",
+                "seaweedfs_tpu_torch.filer.filerstore",
+                "seaweedfs_tpu_torch.filer.filer",
+                "seaweedfs_tpu_torch.filer.shard",
+                "seaweedfs_tpu_torch.filer.stores.memory_store",
+                "seaweedfs_tpu_torch.filer.stores.leveldb_store",
+                "seaweedfs_tpu_torch.filer.stores.leveldb2_store",
+                "seaweedfs_tpu_torch.filer.stores.sqlite_store",
+                "seaweedfs_tpu_torch.filer.stores.abstract_sql_store",
+                "seaweedfs_tpu_torch.notification.queues",
+                "seaweedfs_tpu_torch.notification.brokers",
+                "seaweedfs_tpu_torch.server.filer_server"):
         assert mod in report["modules"], mod
+    # a gated store fails on its own client library only
+    for mod, missing in report["gated"].items():
+        assert missing == GATED_STORES[mod], (mod, missing)
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == [], leaked
     assert report["loaded"] == []
@@ -142,10 +177,69 @@ def test_control_plane_module_alone_loads_no_jax(module):
     assert [m for m in modules if _forbidden(m)] == []
 
 
-@pytest.mark.parametrize("cmd", ["master", "shell"])
+@pytest.mark.parametrize("module", [
+    "seaweedfs_tpu_torch.filer.entry",
+    "seaweedfs_tpu_torch.filer.filechunks",
+    "seaweedfs_tpu_torch.filer.stream",
+    "seaweedfs_tpu_torch.filer.filerstore",
+    "seaweedfs_tpu_torch.filer.filer",
+    "seaweedfs_tpu_torch.filer.shard",
+    "seaweedfs_tpu_torch.filer.stores.memory_store",
+    "seaweedfs_tpu_torch.filer.stores.leveldb_store",
+    "seaweedfs_tpu_torch.filer.stores.leveldb2_store",
+    "seaweedfs_tpu_torch.filer.stores.sqlite_store",
+    "seaweedfs_tpu_torch.filer.stores.abstract_sql_store",
+    "seaweedfs_tpu_torch.notification",
+    "seaweedfs_tpu_torch.notification.queues",
+    "seaweedfs_tpu_torch.notification.brokers",
+    "seaweedfs_tpu_torch.server.filer_server",
+])
+def test_filer_module_alone_loads_no_jax(module):
+    """Each module of the port's filer tier, imported alone in a fresh
+    process, loads no jax and nothing of seaweedfs_tpu."""
+    test_control_plane_module_alone_loads_no_jax(module)
+
+
+def test_every_filer_store_loads_no_jax(tmp_path):
+    """create_store of every store name the reference knows (the gated
+    ones fail with "unknown filer store" where their client library is
+    missing, as the reference's do) leaves nothing of jax or
+    seaweedfs_tpu in sys.modules: _load_builtin imports the gated
+    stores by the port's own name."""
+    code = (
+        "import json, os, sys\n"
+        "from seaweedfs_tpu_torch.filer.filerstore import (\n"
+        "    available_stores, create_store)\n"
+        "from seaweedfs_tpu_torch.cli import _store_kwargs\n"
+        "made, refused = [], []\n"
+        "for name in ['memory', 'leveldb', 'leveldb2', 'sqlite', 'sql',\n"
+        "             'redis', 'etcd', 'cassandra', 'tikv', 'mysql',\n"
+        "             'postgres']:\n"
+        "    path = os.path.join(sys.argv[1], name)\n"
+        "    try:\n"
+        "        create_store(name, **_store_kwargs(name, path))\n"
+        "        made.append(name)\n"
+        "    except ValueError:\n"
+        "        refused.append(name)\n"
+        "print(json.dumps({'modules': sorted(sys.modules), 'made': made,\n"
+        "                  'refused': refused,\n"
+        "                  'available': available_stores()}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in report["modules"] if _forbidden(m)] == []
+    assert {"memory", "leveldb", "leveldb2", "sqlite", "sql"} <= \
+        set(report["made"])
+    assert sorted(report["made"]) == sorted(report["available"])
+
+
+@pytest.mark.parametrize("cmd", ["master", "shell", "filer", "filer.copy"])
 def test_cli_master_and_shell_entry_points_load_no_jax(cmd):
-    """`python -m seaweedfs_tpu_torch.cli master -h` (and `shell -h`)
-    import no jax and nothing of seaweedfs_tpu: -X importtime lists every
+    """`python -m seaweedfs_tpu_torch.cli master -h` (and `shell -h`,
+    `filer -h`, `filer.copy -h`) import no jax and nothing of seaweedfs_tpu: -X importtime lists every
     module the command's process imports."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(

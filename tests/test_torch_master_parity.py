@@ -120,19 +120,31 @@ def test_memory_sequencer_gives_equal_keys():
 
 
 def test_shard_map_routes_are_not_ported_yet():
-    """GET /cluster/shards and /debug/shards, and a shard-map change, all
-    need the filer's shard module: the port answers each with 500 naming
-    its missing module, where the reference answers 200."""
+    """The shard-map routes now that filer/shard.py is ported (the name
+    is kept from when the port answered them with 500): GET
+    /cluster/shards and /debug/shards, and POSTed map ops (a register, a
+    rejected split, a split intent and its idempotent re-submit), give
+    both masters the same status and the same body, each master's own
+    address masked."""
+    ops = [({"op": "register", "shard": 1, "url": "h:1"}, 200),
+           ({"op": "set", "rules": [["/a", 1]]}, 400),
+           ({"op": "split_intent", "prefix": "/a", "to": 0}, 400),
+           ({"op": "split_intent", "prefix": "/a", "to": 1}, 200),
+           ({"op": "split_intent", "prefix": "/a", "to": 1}, 200)]
+
     async def body(http, ref, port):
         for path in ("/cluster/shards", "/debug/shards"):
-            (rs, _), (ps, pb) = await _pair_get(http, (ref, port), path)
-            assert rs == 200 and ps == 500, (path, rs, ps)
-            assert pb["error"].startswith("not ported yet") and \
-                "seaweedfs_tpu_torch.filer" in pb["error"], pb
-        async with http.post(f"http://{port.url}/cluster/shards",
-                             json={"op": "init", "shards": 2}) as r:
-            assert r.status == 500
-            err = (await r.json())["error"]
-        assert err.startswith("not ported yet") and \
-            "seaweedfs_tpu_torch.filer" in err, err
+            (rs, rb), (ps, pb) = await _pair_get(http, (ref, port), path)
+            assert rs == 200 and (ps, pb) == (rs, rb), path
+        for op, want in ops:
+            got = []
+            for m in (ref, port):
+                async with http.post(f"http://{m.url}/cluster/shards",
+                                     json=op) as r:
+                    got.append((r.status, _norm(await r.json(), m.url)))
+            assert got[0][0] == want and got[1] == got[0], (op, got)
+        for path in ("/cluster/shards", "/debug/shards"):
+            (rs, rb), (ps, pb) = await _pair_get(http, (ref, port), path)
+            assert rs == 200 and (ps, pb) == (rs, rb), path
+        assert rb["map"]["moves"]
     run(_with_masters(0, body))

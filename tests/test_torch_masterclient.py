@@ -5,10 +5,10 @@ failover) + vid_map.go (round-robin lookup).
 
 The cases of tests/test_masterclient.py pointed at the port
 (seaweedfs_tpu_torch): its modules, its servers and its own registries.
-The filer is not in the port yet: its case runs the JAX package's filer
-(and its MasterClient) against the port's master and volume servers, and
-a case of the port's own client (util/client.py attach_master_client)
-reads through the port's MasterClient.
+The filer case runs the port's filer (and its MasterClient) against the
+port's master and volume servers, and a case of the port's own client
+(util/client.py attach_master_client) reads through the port's
+MasterClient.
 """
 
 import asyncio
@@ -85,12 +85,12 @@ def test_masterclient_round_robin(tmp_path):
 
 
 def test_filer_uses_watch_map(tmp_path):
-    """Filer reads flow through the attached MasterClient map (the JAX
-    package's filer, under the port's master)."""
+    """Filer reads flow through the attached MasterClient map (the
+    port's filer, under the port's master)."""
     async def body():
         async with Cluster(str(tmp_path), n_servers=1) as c:
-            from seaweedfs_tpu.filer.filer import Filer
-            from seaweedfs_tpu.server.filer_server import FilerServer
+            from seaweedfs_tpu_torch.filer.filer import Filer
+            from seaweedfs_tpu_torch.server.filer_server import FilerServer
             fs = FilerServer(Filer("memory"), c.master.url, port=0,
                              chunk_size=1024)
             await fs.start()

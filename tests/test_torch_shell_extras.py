@@ -3,23 +3,18 @@ fs.pwd session state, fs.meta.cat, fs.meta.notify, and the volume
 mount/unmount/copy/delete admin commands.
 
 The cases of tests/test_shell_extras.py pointed at the port
-(seaweedfs_tpu_torch): its modules, its servers and its own registries.
-The filer is not in the port yet: the fs.* case runs the port's shell
-against the JAX package's filer under the port's master, and
-fs.meta.notify, which needs the filer's entries and the notification
-queues, answers "not ported yet".
+(seaweedfs_tpu_torch): its modules, its servers (the filer among them)
+and its own registries.
 """
 
 from __future__ import annotations
-
-import os
 
 import pytest
 
 from test_torch_cluster_util import Cluster, run
 
-from seaweedfs_tpu.filer.filer import Filer
-from seaweedfs_tpu.server.filer_server import FilerServer
+from seaweedfs_tpu_torch.filer.entry import Entry
+from seaweedfs_tpu_torch.notification.queues import FileQueue
 from seaweedfs_tpu_torch.shell.env import CommandEnv
 from seaweedfs_tpu_torch.shell.runner import dispatch
 
@@ -64,28 +59,30 @@ async def _fs_commands(c, furl: str, tmp_path) -> None:
             await dispatch(env, "fs.cd -path b.txt")
         assert (await dispatch(env, "fs.pwd"))["cwd"] == "/docs/sub"
 
-        # fs.meta.notify needs the notification queues, which
-        # the port does not have yet: it says so, and writes
-        # nothing
+        # fs.meta.notify primes a queue with create events the
+        # replication pipeline can parse
         qpath = str(tmp_path / "notify.q")
-        with pytest.raises(RuntimeError, match="not ported yet"):
-            await dispatch(
-                env, f"fs.meta.notify -path / -notify file:{qpath}")
+        res = await dispatch(
+            env, f"fs.meta.notify -path / -notify file:{qpath}")
+        assert res["notified_files"] == 2
+        assert res["notified_dirs"] >= 2  # /docs, /docs/sub
+        msgs, _ = FileQueue(qpath).read_from(0)
+        paths = set()
+        for m in msgs:
+            e = Entry.from_dict(m["event"]["new_entry"])
+            assert m["event"]["old_entry"] is None
+            paths.add(e.full_path)
+        assert {"/docs/a.txt", "/docs/sub/b.txt"} <= paths
         with pytest.raises(ValueError, match="-notify"):
             await dispatch(env, "fs.meta.notify -path /")
-        assert not os.path.exists(qpath)
 
 
 def test_fs_cd_pwd_meta_cat_notify(tmp_path):
     async def body():
-        async with Cluster(str(tmp_path)) as c:
-            filer = FilerServer(Filer("memory"), c.master.url, port=0,
-                                chunk_size=256 * 1024)
-            await filer.start()
-            try:
-                await _fs_commands(c, filer.url, tmp_path)
-            finally:
-                await filer.stop()
+        c = Cluster(str(tmp_path))
+        c.with_filer = True
+        async with c:
+            await _fs_commands(c, c.filer.url, tmp_path)
 
     run(body())
 
