@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed N] [--volume-mib N] [--flagship-mib N]
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
                           [--server-mib N] [--mxu-extra-mib N]
-                          [--workers-mib N]
+                          [--workers-mib N] [--gateway-mib N]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
-and the fused kernel of the GF(2) bit-matrix product), then:
+the fused kernel of the GF(2) bit-matrix product and the CRC32C kernel),
+then:
 
 1. prints the device facts (nvidia-smi name and power limit, torch and
    CUDA versions, kernel build time, the compiler's register report and
@@ -43,7 +44,9 @@ and the fused kernel of the GF(2) bit-matrix product), then:
    version, its bound and its registers and spills at that block and at
    one 1 MiB rows=1 recover (time_mxu(..., parent=load_parent_k4(DIR))
    adds an earlier K4 from DIR's copies of its two files, in turns with
-   the fused kernel);
+   the fused kernel); and the CRC32C kernel on bench.py's path (its only
+   caller in the JAX package: (64, 1 MiB) rows, each held to the host
+   CRC) with its plain version, its bound and each kernel's registers;
 6. runs the multi-device mesh path (parallel/mesh.py) on a one-rank NCCL
    group: full_cycle_step on --mesh-volumes x 10 shards x --mesh-mib MiB
    made from --seed, then batched_verify clean and after one flipped
@@ -121,6 +124,26 @@ and the fused kernel of the GF(2) bit-matrix product), then:
    through the shell and /cluster/shards answers; holds each step's
    launches to its count from the .ecx and to filer_prediction, the
    reckoning from the seed alone;
+13. runs the gateways, no module of seaweedfs_tpu in any of their
+   processes: the port's combined `server -filer -s3` through
+   cli.start_server in process (a SqliteQueue attached to its filer), a
+   standalone `cli s3` with SigV4 credentials and a `cli webdav` in
+   subprocesses on its master. Phase 12's tree of --gateway-mib bytes is
+   PUT as objects of bucket gw13 through the anonymous S3, 8 at a time
+   (multipart in 8 MiB parts from 8 MiB on, as boto3 sends), listed by
+   prefix and delimiter, read and range-read (sha256, and the ETags the
+   reference's gateway gives); a signed set goes through the standalone
+   gateway (header auth over the payload hash, aws-chunked streams in 64
+   KiB chunks; a wrong secret and a tampered chunk refused, the tampered
+   upload's stored chunk deleted); a WebDAV set through MKCOL, PUT,
+   PROPFIND, MOVE and GET; ec.encode -collection of each of the three
+   collections through `cli shell -c`; shards {0,2,4,6} of every EC
+   volume lost; both gateways restarted cold; every object and 20 ranges
+   through the combined S3, every signed object by presigned GET, every
+   WebDAV file, and `cli filer.replicate -once` from the queue into a
+   local tree, all sha256-equal, the degraded chunks recovered by K1 in
+   this process; holds each step's launches to its count from the .ecx
+   and to gateway_prediction, the reckoning from the seed alone;
    then prints one JSON line describing each kernel.
 
 The last line of standard output is
@@ -972,6 +995,121 @@ def time_mxu(dev: torch.device, seed: int, card: str, report: dict,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+# -- K5: CRC32C of every row (phases 2 and 5) --------------------------------
+
+# the lengths and edge rows of tests/test_crc32c_jax.py, its explicit blocks,
+# and bench.py's (64, 1 MiB)
+CRC_NS = (1, 2, 7, 64, 255, 256, 1024, 4096, 12345)
+CRC_BLOCKS = (1, 2, 64, 256, 2048)
+CRC_BENCH = (64, MIB)
+
+
+def crc32c_cases(dev: torch.device, seed: int):
+    """(name, (B, n) uint8 rows on `dev`, block or None) for phase 2."""
+    rng = np.random.default_rng([seed, 5])
+    for n in CRC_NS:
+        yield (f"n={n}", torch.from_numpy(rng.integers(
+            0, 256, (4, n), dtype=np.uint8)).to(dev), None)
+    edge = np.stack([np.zeros(512, np.uint8), np.full(512, 0xFF, np.uint8),
+                     np.eye(1, 512, 0, dtype=np.uint8)[0] * 0x80])
+    yield "edge rows (zeros, 0xFF, one bit)", torch.from_numpy(edge).to(
+        dev), None
+    two = torch.from_numpy(rng.integers(0, 256, (2, 2048),
+                                        dtype=np.uint8)).to(dev)
+    for blk in CRC_BLOCKS:
+        yield f"(2, 2048) block={blk}", two, blk
+    wide = torch.from_numpy(rng.integers(0, 256, (3, 5000),
+                                         dtype=np.uint8)).to(dev)
+    yield "strided rows (3, 5000)[:, :4096]", wide[:, :4096], None
+    for off in (1, 5, 15):
+        yield (f"rows {off} bytes off a 16-byte boundary",
+               wide[:, off:off + 4096], None)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    yield f"bench shape {CRC_BENCH}", torch.randint(
+        0, 256, CRC_BENCH, dtype=torch.uint8, device=dev, generator=gen), None
+
+
+def phase_crc32c_vs_plain(dev: torch.device, seed: int) -> int:
+    """K5 against its plain version and the port's host util/crc32c on
+    every case of crc32c_cases; returns the rows that differ (0)."""
+    from seaweedfs_tpu_torch.ops.crc32c_cuda import (crc32c_batch,
+                                                     crc32c_batch_reference)
+    from seaweedfs_tpu_torch.util.crc32c import crc32c
+    mismatches = 0
+    for name, rows, blk in crc32c_cases(dev, seed):
+        got = crc32c_batch(rows)
+        want = crc32c_batch_reference(rows, block=blk)
+        sync(dev)
+        host = [crc32c(r.tobytes()) for r in rows.cpu().numpy()]
+        bad = int((got != want).sum().item()) + sum(
+            int(a) != b for a, b in zip(got.cpu().tolist(), host))
+        mismatches += bad
+        print(f"  K5 crc32c_batch vs plain and host: {name}: "
+              f"{bad} mismatches")
+        check(bad == 0, f"K5 differs from its plain version or the host "
+              f"CRC: {name}")
+    return mismatches
+
+
+def crc32c_bound(rows: int, n: int) -> dict:
+    """Least time for the CRC32C of (rows, n) bytes: each byte read once
+    and a uint32 written per row, over the HBM rate; or the GF(2)
+    products of crc32c_jax.py as int8 operations over the int8 rate (the
+    smaller here)."""
+    nbytes = rows * n + 4 * rows
+    blk = 256 if n % 256 == 0 else 1
+    ops = 2 * rows * n * 8 * 32 + 2 * rows * (n // blk) * 32 * 32
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops_ms": ops_ms}
+
+
+def time_crc32c(dev: torch.device, seed: int, card: str, report: dict,
+                timer=cuda_ms) -> dict:
+    """bench.py's CRC path (its only caller in the JAX package) on K5:
+    the (64, 1 MiB) rows from `seed`, every row held to the host CRC, with
+    the launch count read around that one call; then K5's time (device
+    alone and back to back), the plain version's, the bound and its
+    share, and each kernel's registers and spills from the ptxas
+    `report`. `timer` is cuda_ms on the card; the tests rehearse on the
+    CPU with another."""
+    from seaweedfs_tpu_torch.ops import crc32c_cuda
+    from seaweedfs_tpu_torch.util.crc32c import crc32c
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    rows, n = CRC_BENCH
+    x = torch.randint(0, 256, (rows, n), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    crc32c_cuda.launches = 0
+    got = crc32c_cuda.crc32c_batch(x)
+    sync(dev)
+    launches = crc32c_cuda.launches
+    host = [crc32c(r.tobytes()) for r in x.cpu().numpy()]
+    check(got.cpu().tolist() == host, "K5 differs from the host CRC at "
+          "bench.py's shape")
+    ms = timer(lambda: crc32c_cuda.crc32c_batch(x), 50)
+    b2b_ms = timer(lambda: crc32c_cuda.crc32c_batch(x), 50, spin=False)
+    plain_ms = timer(lambda: crc32c_cuda.crc32c_batch_reference(x), 3)
+    b = crc32c_bound(rows, n)
+    regs = {fn.split("crc32c_")[-1].split("E")[0]: facts
+            for fn, facts in report.items() if "crc32c_" in fn}
+    print(f"  K5 crc32c_batch ({rows}, {n}) (bench.py's shape): "
+          f"{launches} launch in bench.py's path, every row equal to the "
+          f"host CRC; {ms:.4f} ms (device alone; back to back with the "
+          f"host's calls {b2b_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes; "
+          f"the GF(2) products as int8 ops {b['ops_ms']:.4f} ms), share "
+          f"{b['bound_ms'] / ms:.3f}; {rows * n / ms / 1e6:.1f} GB/s; "
+          f"registers and spills {regs} [{card}]")
+    del x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "b2b_ms": b2b_ms,
+            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "registers": regs}
 
 
 # -- phase 6: the mesh path --------------------------------------------------
@@ -3391,6 +3529,906 @@ async def _drive_filer(dev: torch.device, seed: int, target: int,
             "dat_size": dat_size}
 
 
+GATEWAY_DIR = os.path.join(ROOT, ".smoke_gateway")
+# buckets (each its own collection) of the combined server's anonymous S3,
+# of the signed standalone gateway and of its refused upload, and the
+# WebDAV gateway's collection
+GATEWAY_BUCKET = "gw13"
+GATEWAY_SIGNED_BUCKET = "gw13-signed"
+GATEWAY_TAMPER_BUCKET = "gw13-tamper"
+GATEWAY_DAV_COLLECTION = "gw13dav"
+# boto3's default multipart_threshold and multipart_chunksize, what aws-cli
+# users send: objects of this size or more go in parts of this size
+S3_PART = 8 * MIB
+# S3Gateway's chunk_size (seaweedfs_tpu/s3/gateway.py:80), which neither
+# the s3 nor the server subcommand sets
+S3_CHUNK = 8 * MIB
+# the webdav subcommand's -chunkSizeMB default
+DAV_CHUNK_MB = 16
+# the signed set: small objects by header auth over a signed payload hash,
+# large ones (uniform in the range) by aws-chunked streaming in 64 KiB
+# chunks; the WebDAV set: small and large files of the tree's size mix.
+# Both are cut in half from (200, 8) and (500, 8), which took the script
+# past 420 s on the H100 (PERF.md section 4)
+GATEWAY_SIGNED = (100, 4)
+GATEWAY_SIGNED_LARGE = (8 * MIB, 32 * MIB)
+GATEWAY_DAV = (250, 4)
+AWS_CHUNK = 64 << 10
+GATEWAY_KEY, GATEWAY_SECRET = "GW13ACCESSKEY", "GW13SECRETKEY"
+GATEWAY_REGION = "us-east-1"
+
+
+def object_bytes(seed: int, tag: int, i: int, size: int) -> bytes:
+    """The bytes of object i of a set, from `seed` alone."""
+    return np.random.default_rng([seed, tag, i]).bytes(size)
+
+
+def signed_objects(seed: int, counts: tuple = GATEWAY_SIGNED,
+                   large: tuple = GATEWAY_SIGNED_LARGE) -> list[tuple]:
+    """Phase 13's signed set from `seed`: (key, size, streamed), the small
+    objects uniform in FILER_SMALL, the large uniform in `large` and sent
+    aws-chunked."""
+    rng = np.random.default_rng([seed, 15])
+    small = rng.integers(FILER_SMALL[0], FILER_SMALL[1] + 1, counts[0])
+    big = rng.integers(large[0], large[1] + 1, counts[1])
+    return ([(f"s/o{i:04d}.bin", int(s), False) for i, s in enumerate(small)]
+            + [(f"l/o{i:04d}.bin", int(s), True) for i, s in enumerate(big)])
+
+
+def dav_files(seed: int, dirs: list[str], counts: tuple = GATEWAY_DAV
+              ) -> list[tuple]:
+    """Phase 13's WebDAV set from `seed`: (path, size), small files
+    uniform in FILER_SMALL and large ones log-uniform in FILER_LARGE, as
+    the tree's, spread over the tree's directories."""
+    rng = np.random.default_rng([seed, 16])
+    sizes = [int(s) for s in rng.integers(FILER_SMALL[0], FILER_SMALL[1] + 1,
+                                          counts[0])]
+    lo, hi = np.log(FILER_LARGE[0]), np.log(FILER_LARGE[1])
+    sizes += [int(np.exp(v)) for v in rng.uniform(lo, hi, counts[1])]
+    where = rng.integers(0, len(dirs), len(sizes))
+    return [(f"/{dirs[int(w)]}/w{i:04d}.bin", s)
+            for i, (s, w) in enumerate(zip(sizes, where))]
+
+
+def s3_chunks(size: int, part: int) -> list[int]:
+    """The chunks of one gw13 object: one PUT (one chunk) under `part`
+    bytes, else one chunk per part."""
+    return chunk_sizes(size, part) if size >= part else [size]
+
+
+def chunks_etag(datas: list[bytes]) -> str:
+    """filechunks.etag of chunks holding these bytes: a chunk's etag is
+    its CRC32C in hex (the volume server's eTag), several chunks' the MD5
+    of their etags."""
+    from seaweedfs_tpu_torch.util.crc32c import crc32c
+    tags = ["%08x" % crc32c(d) for d in datas]
+    if len(tags) == 1:
+        return tags[0]
+    return hashlib.md5("".join(tags).encode()).hexdigest()
+
+
+def gateway_prediction(seed: int, target: int, *, part: int = S3_PART,
+                       signed: tuple = GATEWAY_SIGNED,
+                       signed_large: tuple = GATEWAY_SIGNED_LARGE,
+                       dav: tuple = GATEWAY_DAV,
+                       dav_chunk: int = DAV_CHUNK_MB * MIB,
+                       lost: tuple = FILER_LOST) -> dict:
+    """Phase 13's K1 launches per step, reckoned on any host from the seed
+    alone. Each collection's chunks land in its one volume (the combined
+    master keeps its 30,000 MB limit), whose .dat size is the sum of the
+    chunk records in any order: each ec.encode is exact. The writes and
+    the intact reads launch nothing. The degraded passes recover each
+    lost whole block of every chunk they read, and uploads run 8 at a
+    time, so a chunk's offset in its volume is not fixed by the seed:
+    those steps get the least and the most over every offset."""
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    dirs, files = filer_tree(seed, target)
+    gw = [s3_chunks(size, part) for _, size in files]
+    sg = [chunk_sizes(size, S3_CHUNK) for _, size, _ in
+          signed_objects(seed, signed, signed_large)]
+    dv = [chunk_sizes(size, dav_chunk) for _, size in
+          dav_files(seed, dirs, dav)]
+    bounds: dict[int, tuple] = {}
+
+    def span(sizes: list[int]) -> tuple[int, int]:
+        for c in sizes:
+            if c not in bounds:
+                bounds[c] = record_recover_bounds(chunk_record_size(c), lost)
+        return (sum(bounds[c][0] for c in sizes),
+                sum(bounds[c][1] for c in sizes))
+
+    def encode(chunk_lists: list[list[int]]) -> int:
+        dat = SUPER_BLOCK_SIZE + sum(chunk_record_size(c)
+                                     for cs in chunk_lists for c in cs)
+        return batched_generate_launches(dat, pl.LARGE_BLOCK_SIZE,
+                                         pl.SMALL_BLOCK_SIZE)
+
+    ranged = []
+    for i, start, end in filer_ranges(seed, files, part):
+        ranged += gw[i][start // part:end // part + 1]
+    every = [c for cs in gw for c in cs]
+    out = dict.fromkeys(GATEWAY_QUIET_STEPS, 0)
+    out.update({
+        f"ec.encode {GATEWAY_BUCKET}": encode(gw),
+        f"ec.encode {GATEWAY_SIGNED_BUCKET}": encode(sg),
+        f"ec.encode {GATEWAY_DAV_COLLECTION}": encode(dv),
+        "S3 GET degraded": span(every),
+        "S3 Range degraded": span(ranged),
+        "signed GET degraded": span([c for cs in sg for c in cs]),
+        "WebDAV GET degraded": span([c for cs in dv for c in cs]),
+        "filer.replicate": span(every)})
+    return out
+
+
+# the steps of phase 13 that launch nothing
+GATEWAY_QUIET_STEPS = ("S3 PUT", "S3 listing", "S3 GET intact",
+                       "S3 Range intact", "signed PUT", "signed refusals",
+                       "WebDAV PUT", "WebDAV PROPFIND", "WebDAV MOVE",
+                       "WebDAV GET intact", "restarts")
+
+
+def sign_v4(method: str, host: str, path: str, payload_hash: str,
+            secret: str = GATEWAY_SECRET) -> dict:
+    """SigV4 header auth as an SDK signs a request (host, x-amz-date and
+    x-amz-content-sha256 signed), from the port's s3/auth.py primitives."""
+    import hmac
+    from seaweedfs_tpu_torch.s3 import auth
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    date = amz_date[:8]
+    headers = {"host": host, "x-amz-date": amz_date,
+               "x-amz-content-sha256": payload_hash}
+    signed = sorted(headers)
+    canon = "\n".join([method, path, "",
+                       "".join(f"{h}:{headers[h]}\n" for h in signed),
+                       ";".join(signed), payload_hash])
+    scope = f"{date}/{GATEWAY_REGION}/s3/aws4_request"
+    sts = "\n".join([auth.ALGORITHM, amz_date, scope,
+                     hashlib.sha256(canon.encode()).hexdigest()])
+    sig = hmac.new(auth.signing_key(secret, date, GATEWAY_REGION),
+                   sts.encode(), hashlib.sha256).hexdigest()
+    headers["Authorization"] = (
+        f"{auth.ALGORITHM} Credential={GATEWAY_KEY}/{scope}, "
+        f"SignedHeaders={';'.join(signed)}, Signature={sig}")
+    return headers
+
+
+def aws_chunked(headers: dict, data: bytes, secret: str = GATEWAY_SECRET,
+                tamper_last: bool = False) -> bytes:
+    """`data` framed as STREAMING-AWS4-HMAC-SHA256-PAYLOAD in AWS_CHUNK
+    chunks, each signed in the chain seeded by the request's signature
+    (AuthContext.chunk_signature); with tamper_last the last data chunk's
+    signature is wrong."""
+    from seaweedfs_tpu_torch.s3 import auth
+    seed_sig = headers["Authorization"].split("Signature=")[1]
+    amz_date = headers["x-amz-date"]
+    scope = f"{amz_date[:8]}/{GATEWAY_REGION}/s3/aws4_request"
+    ctx = auth.AuthContext(GATEWAY_KEY, auth.signing_key(
+        secret, amz_date[:8], GATEWAY_REGION), scope, amz_date, seed_sig,
+        "")
+    pieces = [data[i:i + AWS_CHUNK] for i in range(0, len(data), AWS_CHUNK)]
+    out, prev = [], seed_sig
+    for j, piece in enumerate(pieces + [b""]):
+        prev = ctx.chunk_signature(prev, piece)
+        sig = prev
+        if tamper_last and j == len(pieces) - 1:
+            sig = "0" * len(prev)
+        out.append(f"{len(piece):x};chunk-signature={sig}\r\n".encode()
+                   + piece + b"\r\n")
+    return b"".join(out)
+
+
+def presign_get(host: str, path: str, expires: int = 3600) -> dict:
+    """The query of a presigned GET (X-Amz-* parameters, host signed)."""
+    import hmac
+    import urllib.parse
+    from seaweedfs_tpu_torch.s3 import auth
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    date = amz_date[:8]
+    scope = f"{date}/{GATEWAY_REGION}/s3/aws4_request"
+    q = {"X-Amz-Algorithm": auth.ALGORITHM,
+         "X-Amz-Credential": f"{GATEWAY_KEY}/{scope}",
+         "X-Amz-Date": amz_date, "X-Amz-Expires": str(expires),
+         "X-Amz-SignedHeaders": "host"}
+    cq = "&".join(f"{urllib.parse.quote(k, safe='-_.~')}="
+                  f"{urllib.parse.quote(v, safe='-_.~')}"
+                  for k, v in sorted(q.items()))
+    canon = "\n".join(["GET", path, cq, f"host:{host}\n", "host",
+                       auth.UNSIGNED])
+    sts = "\n".join([auth.ALGORITHM, amz_date, scope,
+                     hashlib.sha256(canon.encode()).hexdigest()])
+    q["X-Amz-Signature"] = hmac.new(
+        auth.signing_key(GATEWAY_SECRET, date, GATEWAY_REGION),
+        sts.encode(), hashlib.sha256).hexdigest()
+    return q
+
+
+class CliProcess:
+    """`python -X importtime -m seaweedfs_tpu_torch.cli ...` as a child
+    of this event loop: its importtime log goes to a file (a pipe would
+    fill and stall it), its stdout to a pipe."""
+
+    def __init__(self, name: str, args: list[str], log_dir: str):
+        self.name, self.args = name, args
+        self.log = os.path.join(log_dir, f"{name}.importtime")
+        self.proc = None
+
+    async def spawn(self) -> None:
+        import asyncio
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        with open(self.log, "w") as err:
+            self.proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-X", "importtime", "-m",
+                "seaweedfs_tpu_torch.cli", *self.args, cwd=ROOT, env=env,
+                stdout=asyncio.subprocess.PIPE, stderr=err)
+
+    async def start(self, ready: str, timeout: float = 120.0) -> str:
+        """Spawn it and return group 1 of its first stdout line that
+        matches `ready`."""
+        import asyncio
+        await self.spawn()
+
+        async def wait_line() -> str:
+            while True:
+                line = (await self.proc.stdout.readline()).decode()
+                if line == "":
+                    rc = await self.proc.wait()
+                    check(False, f"{self.name} exited {rc} before it was "
+                          f"ready: {self.tail()}")
+                m = re.search(ready, line)
+                if m:
+                    return m.group(1)
+
+        try:
+            return await asyncio.wait_for(wait_line(), timeout)
+        except BaseException:
+            await self.kill()
+            raise
+
+    async def run(self, timeout: float = 900.0) -> str:
+        """Spawn it and wait for its end; returns its stdout. It must
+        exit 0 and import nothing of jax or seaweedfs_tpu."""
+        import asyncio
+        await self.spawn()
+        try:
+            out, _ = await asyncio.wait_for(self.proc.communicate(), timeout)
+        except BaseException:
+            await self.kill()
+            raise
+        check(self.proc.returncode == 0, f"{self.name}: exit "
+              f"{self.proc.returncode}: {out.decode()[-1000:]} "
+              f"{self.tail()}")
+        self.check_imports()
+        return out.decode()
+
+    def tail(self) -> str:
+        """The end of its standard error, less the importtime lines."""
+        with open(self.log, errors="replace") as f:
+            return "".join(line for line in f
+                           if not line.startswith("import time:"))[-2000:]
+
+    async def stop(self) -> None:
+        """SIGINT, then the exit code must be 0 and the importtime log
+        must list no module of jax or seaweedfs_tpu."""
+        import asyncio
+        import signal
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = await asyncio.wait_for(self.proc.wait(), 60)
+        except asyncio.TimeoutError:
+            await self.kill()
+            rc = None
+        check(rc == 0, f"{self.name} exited {rc} on SIGINT: {self.tail()}")
+        self.check_imports()
+
+    def check_imports(self) -> None:
+        with open(self.log, errors="replace") as f:
+            text = f.read()
+        check("import time:" in text,
+              f"{self.name} printed no -X importtime log")
+        bad = forbidden_imports(text)
+        check(bad == [], f"{self.name} imported {bad[:5]}")
+
+    async def kill(self) -> None:
+        if self.proc is not None and self.proc.returncode is None:
+            self.proc.kill()
+            await self.proc.wait()
+
+
+def phase_gateway(dev: torch.device, seed: int, target: int, *,
+                  card: str = "", part: int = S3_PART,
+                  signed: tuple = GATEWAY_SIGNED,
+                  signed_large: tuple = GATEWAY_SIGNED_LARGE,
+                  dav: tuple = GATEWAY_DAV,
+                  dav_chunk_mb: int = DAV_CHUNK_MB) -> dict:
+    """The gateways over the port's combined server, no module of
+    seaweedfs_tpu in any of its processes: `server -filer -s3` through
+    cli.start_server in this process, with a SqliteQueue on its filer; the
+    tree of phase 12 (from `seed`, `target` bytes) PUT as objects of bucket
+    gw13 through its anonymous S3 (multipart at `part` bytes), listed,
+    read and ranged; a signed set through a standalone `cli s3` subprocess
+    (header auth, aws-chunked streaming, a wrong secret and a tampered
+    chunk refused); a WebDAV set through a `cli webdav` subprocess (MKCOL,
+    PUT, PROPFIND, MOVE, GET); ec.encode of each collection through `cli
+    shell -c`; shards {0,2,4,6} lost; both gateways restarted cold; every
+    object, range and file read again and the tree replicated by `cli
+    filer.replicate -once`, the degraded chunks recovered by K1 in this
+    process. Returns the launches, what the .ecx says they must be, and
+    the timings."""
+    import asyncio
+    shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
+    os.makedirs(os.path.join(GATEWAY_DIR, "logs"))
+    try:
+        return asyncio.run(_drive_gateway(
+            dev, seed, target, card, part, signed, signed_large, dav,
+            dav_chunk_mb))
+    finally:
+        shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
+
+
+async def _drive_gateway(dev, seed, target, card, part, signed,
+                         signed_large, dav, dav_chunk_mb) -> dict:
+    import asyncio
+    import urllib.parse
+    import xml.etree.ElementTree as ET
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.notification.queues import (SqliteQueue,
+                                                         attach_to_filer)
+    from seaweedfs_tpu_torch.s3 import auth
+    from seaweedfs_tpu_torch.storage.needle_map import walk_index_blob
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+
+    check(part <= S3_CHUNK, f"parts of {part} bytes would span chunks")
+    tag = f"[{card}]" if card else ""
+    logs = os.path.join(GATEWAY_DIR, "logs")
+    loop = asyncio.get_running_loop()
+    launches, expected, timing = {}, {}, {}
+    dav_chunk = dav_chunk_mb * MIB
+    dirs, files = filer_tree(seed, target)
+    sobjs = signed_objects(seed, signed, signed_large)
+    dfiles = dav_files(seed, dirs, dav)
+    ranges = filer_ranges(seed, files, part)
+    total = sum(size for _, size in files)
+
+    async def counted(step: str, coro):
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = await coro
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    def in_thread(fn, *args):
+        return loop.run_in_executor(None, fn, *args)
+
+    ports = {k: free_port() for k in ("master", "volume", "filer", "s3",
+                                      "s3alone", "dav")}
+    parser = cli.build_parser()
+    up, rec = await cli.start_server(parser.parse_args([
+        "server", "-dir", os.path.join(GATEWAY_DIR, "server"), "-filer",
+        "-s3", "-masterPort", str(ports["master"]), "-volumePort",
+        str(ports["volume"]), "-filerPort", str(ports["filer"]),
+        "-s3Port", str(ports["s3"])]))
+    master, vs, s3 = up["master"], up["volume"], up["s3"]
+    qpath = os.path.join(GATEWAY_DIR, "events.db")
+    queue = SqliteQueue(qpath)
+    attach_to_filer(up["filer"].filer, queue)
+    check(master.volume_size_limit == 30_000 * 1024 * 1024,
+          f"the combined master's volume limit is "
+          f"{master.volume_size_limit} bytes, not its 30,000 MB default")
+    s3alone = CliProcess("s3", [
+        "s3", "-port", str(ports["s3alone"]), "-master", master.url,
+        "-store", "sqlite", "-dbPath", os.path.join(GATEWAY_DIR, "s3.db"),
+        "-accessKey", GATEWAY_KEY, "-secretKey", GATEWAY_SECRET], logs)
+    davp = CliProcess("webdav", [
+        "webdav", "-port", str(ports["dav"]), "-master", master.url,
+        "-store", "sqlite", "-dbPath", os.path.join(GATEWAY_DIR, "dav.db"),
+        "-collection", GATEWAY_DAV_COLLECTION, "-chunkSizeMB",
+        str(dav_chunk_mb)], logs)
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900))
+    sem = asyncio.Semaphore(8)
+    s3url = f"http://{s3.url}"
+    etags, shas = {}, {}
+    try:
+        alone = await s3alone.start(r"s3 gateway listening on (\S+)")
+        dav_host = await davp.start(r"webdav listening on (\S+) ")
+
+        # -- 2. anonymous S3 through the combined server
+        async with http.put(f"{s3url}/{GATEWAY_BUCKET}") as r:
+            check(r.status == 200, f"PUT bucket: {r.status}")
+
+        def prepare(i: int, size: int) -> tuple:
+            data = object_bytes(seed, 12, i, size)
+            parts = [data[j:j + part] for j in range(0, size, part)] \
+                if size >= part else [data]
+            return (data, hashlib.sha256(data).hexdigest(),
+                    hashlib.md5(data).hexdigest(),
+                    [hashlib.md5(p).hexdigest() for p in parts],
+                    chunks_etag(parts), parts)
+
+        async def put_object(i: int, key: str, size: int) -> None:
+            async with sem:
+                data, sha, md5, part_md5, etag, parts = await in_thread(
+                    prepare, i, size)
+                url = f"{s3url}/{GATEWAY_BUCKET}/{key}"
+                if size < part:
+                    async with http.put(url, data=data) as r:
+                        check(r.status == 200 and r.headers.get("ETag")
+                              == f'"{md5}"', f"PUT {key}: {r.status} ETag "
+                              f"{r.headers.get('ETag')}, expected the MD5")
+                    etags[key] = f'"{etag}"'
+                else:
+                    async with http.post(url, params={"uploads": ""}) as r:
+                        body = await r.read()
+                        check(r.status == 200, f"initiate {key}: {r.status}")
+                    uid = next(el.text for el in ET.fromstring(body).iter()
+                               if el.tag.endswith("UploadId"))
+                    for n, p in enumerate(parts, 1):
+                        async with http.put(url, data=p, params={
+                                "partNumber": str(n), "uploadId": uid}) as r:
+                            check(r.status == 200 and r.headers.get("ETag")
+                                  == f'"{part_md5[n - 1]}"',
+                                  f"part {n} of {key}: {r.status}")
+                    async with http.post(url, params={"uploadId": uid},
+                                         data=b"<CompleteMultipartUpload/>"
+                                         ) as r:
+                        body = await r.read()
+                        check(r.status == 200, f"complete {key}: {r.status}")
+                    got = next(el.text for el in ET.fromstring(body).iter()
+                               if el.tag.endswith("ETag"))
+                    check(got == f'"{etag}-{len(parts)}"', f"complete "
+                          f"{key}: ETag {got}, expected \"{etag}-"
+                          f"{len(parts)}\"")
+                    etags[key] = f'"{etag}"'
+                shas[key] = sha
+
+        await counted("S3 PUT", asyncio.gather(*(
+            put_object(i, key, size) for i, (key, size) in enumerate(files))))
+        t = timing["S3 PUT"]
+        n_multi = sum(size >= part for _, size in files)
+        print(f"  S3 PUT (anonymous, the combined server's gateway, 8 at a "
+              f"time): {len(files)} objects ({n_multi} by multipart in "
+              f"{part} B parts), {total} bytes in {t:.3f} s "
+              f"({total / t / 1e6:.1f} MB/s, {len(files) / t:.1f} "
+              f"objects/s); PUT, part and completion ETags as the "
+              f"reference's gateway gives them {tag}")
+
+        async def list_all() -> None:
+            for d in [""] + dirs:
+                prefix = d + "/" if d else ""
+                async with http.get(f"{s3url}/{GATEWAY_BUCKET}", params={
+                        "prefix": prefix, "delimiter": "/"}) as r:
+                    body = await r.read()
+                    check(r.status == 200, f"list {prefix}: {r.status}")
+                root = ET.fromstring(body)
+                got = {(el.findtext("{*}Key"), int(el.findtext("{*}Size")),
+                        el.findtext("{*}ETag"))
+                       for el in root.findall("{*}Contents")}
+                want = {(k, size, etags[k]) for k, size in files
+                        if posixpath.dirname(k) == d}
+                check(got == want, f"listing of {prefix!r} differs from "
+                      f"the tree: {sorted(got ^ want)[:3]}")
+                pre = {el.findtext("{*}Prefix")
+                       for el in root.findall("{*}CommonPrefixes")}
+                check(pre == {x + "/" for x in dirs
+                              if posixpath.dirname(x) == d},
+                      f"common prefixes of {prefix!r}: {sorted(pre)[:4]}")
+
+        await counted("S3 listing", list_all())
+
+        async def get_object(key: str, url: str, **kw) -> float:
+            h = hashlib.sha256()
+            t0 = time.perf_counter()
+            async with http.get(url, **kw) as r:
+                status, etag = r.status, r.headers.get("ETag")
+                async for block in r.content.iter_chunked(MIB):
+                    h.update(block)
+            check(status == 200 and h.hexdigest() == shas[key],
+                  f"GET {key}: status {status}, sha256 differs")
+            if key in etags:
+                check(etag == etags[key], f"GET {key}: ETag {etag}, "
+                      f"expected {etags[key]}")
+            return time.perf_counter() - t0
+
+        async def s3_get_all() -> list[float]:
+            return [await get_object(
+                key, f"{s3url}/{GATEWAY_BUCKET}/{key}") for key, _ in files]
+
+        async def s3_range(i: int, start: int, end: int) -> None:
+            key, size = files[i]
+            want = (await in_thread(object_bytes, seed, 12, i, size))[
+                start:end + 1]
+            async with http.get(f"{s3url}/{GATEWAY_BUCKET}/{key}",
+                                headers={"Range": f"bytes={start}-{end}"}
+                                ) as r:
+                body = await r.read()
+                check(r.status == 206 and body == want
+                      and r.headers.get("Content-Range")
+                      == f"bytes {start}-{end}/{size}",
+                      f"Range {start}-{end} of {key}: {r.status}, "
+                      f"{len(body)} bytes")
+
+        lat_a = await counted("S3 GET intact", s3_get_all())
+
+        async def ranges_intact():
+            for i, start, end in ranges:
+                await s3_range(i, start, end)
+
+        await counted("S3 Range intact", ranges_intact())
+
+        # -- 3. signed S3 through the standalone gateway
+        ahost = alone
+        aurl = f"http://{ahost}"
+        h = sign_v4("PUT", ahost, f"/{GATEWAY_SIGNED_BUCKET}", auth.UNSIGNED)
+        async with http.put(f"{aurl}/{GATEWAY_SIGNED_BUCKET}",
+                            headers=h) as r:
+            check(r.status == 200, f"signed PUT bucket: {r.status} "
+                  f"{await r.text()}")
+
+        async def put_signed(i: int, key: str, size: int,
+                             streamed: bool) -> None:
+            async with sem:
+                data = await in_thread(object_bytes, seed, 15, i, size)
+                path = f"/{GATEWAY_SIGNED_BUCKET}/{key}"
+                if streamed:
+                    h = sign_v4("PUT", ahost, path, auth.STREAMING)
+                    h["Content-Encoding"] = "aws-chunked"
+                    h["x-amz-decoded-content-length"] = str(size)
+                    body = await in_thread(aws_chunked, h, data)
+                else:
+                    h = sign_v4("PUT", ahost, path,
+                                hashlib.sha256(data).hexdigest())
+                    body = data
+                async with http.put(aurl + path, headers=h, data=body) as r:
+                    check(r.status == 200 and r.headers.get("ETag")
+                          == f'"{hashlib.md5(data).hexdigest()}"',
+                          f"signed PUT {key}: {r.status} {await r.text()}")
+                shas[key] = hashlib.sha256(data).hexdigest()
+                pieces = [data[j:j + S3_CHUNK]
+                          for j in range(0, size, S3_CHUNK)]
+                etags[key] = f'"{chunks_etag(pieces)}"'
+
+        await counted("signed PUT", asyncio.gather(*(
+            put_signed(i, key, size, streamed)
+            for i, (key, size, streamed) in enumerate(sobjs))))
+        sbytes = sum(size for _, size, _ in sobjs)
+        print(f"  signed S3 PUT (standalone `cli s3`, SigV4 header auth; "
+              f"{sum(s for _, _, s in sobjs)} aws-chunked in {AWS_CHUNK} B "
+              f"chunks): {len(sobjs)} objects, {sbytes} bytes in "
+              f"{timing['signed PUT']:.3f} s {tag}")
+
+        async def refusals() -> None:
+            path = f"/{GATEWAY_SIGNED_BUCKET}/refused.bin"
+            h = sign_v4("PUT", ahost, path, auth.UNSIGNED, secret="WRONG")
+            async with http.put(aurl + path, headers=h, data=b"x") as r:
+                body = await r.read()
+                check(r.status == 403
+                      and b"<Code>SignatureDoesNotMatch</Code>" in body,
+                      f"a wrong secret got {r.status} {body[:200]}")
+            h = sign_v4("PUT", ahost, f"/{GATEWAY_TAMPER_BUCKET}",
+                        auth.UNSIGNED)
+            async with http.put(f"{aurl}/{GATEWAY_TAMPER_BUCKET}",
+                                headers=h) as r:
+                check(r.status == 200, f"PUT bucket: {r.status}")
+            # over one gateway chunk, so the first chunk is stored before
+            # the last signature fails
+            size = S3_CHUNK + MIB
+            data = await in_thread(object_bytes, seed, 17, 0, size)
+            path = f"/{GATEWAY_TAMPER_BUCKET}/tampered.bin"
+            h = sign_v4("PUT", ahost, path, auth.STREAMING)
+            h["Content-Encoding"] = "aws-chunked"
+            h["x-amz-decoded-content-length"] = str(size)
+            body = await in_thread(lambda: aws_chunked(h, data,
+                                                       tamper_last=True))
+            async with http.put(aurl + path, headers=h, data=body) as r:
+                text = await r.read()
+                check(r.status == 403
+                      and b"<Code>SignatureDoesNotMatch</Code>" in text,
+                      f"a tampered chunk got {r.status} {text[:200]}")
+            # the chunk stored before the failure is deleted (the
+            # standalone gateway's chunk GC loop, once a second)
+            vols = [v for v in vs.store.volumes.values()
+                    if v.collection == GATEWAY_TAMPER_BUCKET]
+            check(len(vols) == 1, f"{len(vols)} volumes of "
+                  f"{GATEWAY_TAMPER_BUCKET}")
+            nm = vols[0].nm
+            for _ in range(100):
+                if nm.file_count >= 1 and nm.deleted_count == nm.file_count:
+                    break
+                await asyncio.sleep(0.1)
+            check(nm.file_count == 1 and nm.deleted_count == 1,
+                  f"the tampered upload left {nm.file_count} chunks, "
+                  f"{nm.deleted_count} deleted: expected its one stored "
+                  f"chunk deleted; the gateway's log: {s3alone.tail()}")
+            h = sign_v4("GET", ahost, path, auth.UNSIGNED)
+            async with http.get(aurl + path, headers=h) as r:
+                check(r.status == 404, f"GET of the refused object: "
+                      f"{r.status}")
+
+        await counted("signed refusals", refusals())
+        print(f"  refused: a wrong secret (403 SignatureDoesNotMatch), a "
+              f"tampered chunk signature (403, its stored chunk deleted) "
+              f"{tag}")
+
+        # -- 4. WebDAV
+        durl = f"http://{dav_host}"
+
+        async def dav_put() -> None:
+            for d in dirs:
+                async with http.request("MKCOL", f"{durl}/{d}") as r:
+                    check(r.status == 201, f"MKCOL {d}: {r.status}")
+
+            async def put(i: int, path: str, size: int) -> None:
+                async with sem:
+                    data = await in_thread(object_bytes, seed, 16, i, size)
+                    async with http.put(durl + path, data=data) as r:
+                        check(r.status == 201, f"PUT {path}: {r.status}")
+                    shas[path] = hashlib.sha256(data).hexdigest()
+
+            await asyncio.gather(*(put(i, p, s)
+                                   for i, (p, s) in enumerate(dfiles)))
+
+        await counted("WebDAV PUT", dav_put())
+        dbytes = sum(s for _, s in dfiles)
+        print(f"  WebDAV (`cli webdav -chunkSizeMB {dav_chunk_mb}`): MKCOL "
+              f"{len(dirs)} directories, PUT {len(dfiles)} files, {dbytes} "
+              f"bytes in {timing['WebDAV PUT']:.3f} s {tag}")
+
+        def dav_tree(moved: tuple | None) -> tuple[list, list]:
+            """Directories and files of the WebDAV tree, after `moved`
+            (source, destination) when given."""
+            def mv(p: str) -> str:
+                if moved and (p == moved[0] or p.startswith(moved[0] + "/")):
+                    return moved[1] + p[len(moved[0]):]
+                return p
+            return ([mv("/" + d) for d in dirs],
+                    [(mv(p), s, p) for p, s in dfiles])
+
+        async def propfind_all(moved=None) -> None:
+            ds, fs = dav_tree(moved)
+            for d in ["/"] + ds:
+                async with http.request("PROPFIND", durl + d,
+                                        headers={"Depth": "1"}) as r:
+                    body = await r.read()
+                    check(r.status == 207, f"PROPFIND {d}: {r.status}")
+                got = {}
+                for resp in ET.fromstring(body).findall("{DAV:}response"):
+                    href = urllib.parse.unquote(resp.findtext("{DAV:}href"))
+                    got[href] = resp.findtext(".//{DAV:}getcontentlength")
+                me = d if d == "/" else d + "/"
+                want = {me: None}
+                want.update({x + "/": None for x in ds
+                             if posixpath.dirname(x) == d})
+                want.update({p: str(s) for p, s, _ in fs
+                             if posixpath.dirname(p) == d})
+                check(got == want, f"PROPFIND {d} differs from the tree: "
+                      f"{sorted(set(got.items()) ^ set(want.items()))[:3]}")
+
+        await counted("WebDAV PROPFIND", propfind_all())
+        moved = ("/" + dirs[1], "/" + dirs[1] + "-moved")
+
+        async def dav_move() -> None:
+            async with http.request("MOVE", durl + moved[0], headers={
+                    "Destination": durl + moved[1]}) as r:
+                check(r.status == 201, f"MOVE {moved}: {r.status}")
+            await propfind_all(moved)
+
+        await counted("WebDAV MOVE", dav_move())
+        _, dav_after = dav_tree(moved)
+
+        async def dav_get_all() -> list[float]:
+            return [await get_object(orig, durl + p)
+                    for p, _, orig in dav_after]
+
+        async def dav_get_intact() -> list[float]:
+            lat = await dav_get_all()
+            i = max(range(len(dav_after)), key=lambda j: dav_after[j][1])
+            p, size, orig = dav_after[i]
+            start = max(0, min(size - 1, dav_chunk) - 1000)
+            end = min(size - 1, start + 300_000)
+            data = await in_thread(object_bytes, seed, 16,
+                                   dfiles.index((orig, size)), size)
+            async with http.get(durl + p, headers={
+                    "Range": f"bytes={start}-{end}"}) as r:
+                check(r.status == 206 and await r.read()
+                      == data[start:end + 1], f"WebDAV Range of {p}: "
+                      f"{r.status}")
+            return lat
+
+        lat_dav_a = await counted("WebDAV GET intact", dav_get_intact())
+        print(f"  WebDAV: PROPFIND Depth 1 of every directory equal to the "
+              f"tree, MOVE {moved[0]} -> {moved[1]}, every file and a Range "
+              f"GET sha256-equal {tag}")
+
+        # -- 5. ec.encode of each collection through `cli shell -c`
+        colls = (GATEWAY_BUCKET, GATEWAY_SIGNED_BUCKET,
+                 GATEWAY_DAV_COLLECTION)
+        by_coll = {}
+        for v in vs.store.volumes.values():
+            by_coll.setdefault(v.collection, []).append(v.vid)
+        check(sorted(by_coll) == sorted(colls + (GATEWAY_TAMPER_BUCKET,))
+              and all(len(x) == 1 for x in by_coll.values()),
+              f"volumes by collection {by_coll}: expected one each")
+        vids = {c: by_coll[c][0] for c in colls}
+        sizes = {GATEWAY_BUCKET: [s3_chunks(s, part) for _, s in files],
+                 GATEWAY_SIGNED_BUCKET: [chunk_sizes(s, S3_CHUNK)
+                                         for _, s, _ in sobjs],
+                 GATEWAY_DAV_COLLECTION: [chunk_sizes(s, dav_chunk)
+                                          for _, s in dfiles]}
+        bases = {}
+        for c in colls:
+            base = os.path.join(vs.store.dirs[0], f"{c}_{vids[c]}")
+            dat_size = os.path.getsize(base + ".dat")
+            reckoned = SUPER_BLOCK_SIZE + sum(
+                chunk_record_size(x) for cs in sizes[c] for x in cs)
+            check(dat_size == reckoned, f"{c}'s volume {vids[c]} holds "
+                  f"{dat_size} bytes; its chunk records sum to {reckoned}")
+            step = f"ec.encode {c}"
+            out = await counted(step, CliProcess(f"shell-{c}", [
+                "shell", "-master", master.url, "-c",
+                f"ec.encode -collection {c} -fullPercent 0"], logs).run())
+            res = json.loads(out)
+            check([r["volume"] for r in res] == [vids[c]]
+                  and sorted(res[0]["assignments"].get(vs.url, []))
+                  == list(range(gf.TOTAL_SHARDS)),
+                  f"{step} answered {res}")
+            expected[step] = batched_generate_launches(
+                dat_size, vs.store.ec_large_block, vs.store.ec_small_block)
+            bases[c] = base
+        print(f"  ec.encode -collection (`cli shell -c`, one subprocess "
+              f"each): volumes {vids}, .dat sizes as reckoned, "
+              f"{ {c: round(timing[f'ec.encode {c}'], 3) for c in colls} } "
+              f"s, all 14 shards on the combined server {tag}")
+
+        # -- 6. lose {0,2,4,6} of every EC volume, restart both gateways
+        lost = list(FILER_LOST)
+        arg = ",".join(map(str, lost))
+        for c in colls:
+            for path in ("/admin/ec/unmount", "/admin/ec/delete_shards"):
+                async with http.post(f"http://{vs.url}{path}", params={
+                        "volume": str(vids[c]), "collection": c,
+                        "shards": arg}) as r:
+                    check(r.status == 200, f"POST {path}: {r.status}")
+            check(not any(os.path.exists(bases[c] + pl.to_ext(s))
+                          for s in lost), f"lost shards of {c} remain")
+        await vs.heartbeat_once()
+
+        async def restart() -> tuple[str, str]:
+            for p in (s3alone, davp):
+                await p.stop()
+            return (await s3alone.start(r"s3 gateway listening on (\S+)"),
+                    await davp.start(r"webdav listening on (\S+) "))
+
+        ahost, dav_host = await counted("restarts", restart())
+        aurl, durl = f"http://{ahost}", f"http://{dav_host}"
+
+        # the needles each step reads and their recovers from the .ecx
+        threshold = vs.store.ec_volumes[vids[GATEWAY_BUCKET]] \
+            .small_recover_bytes
+        entries = {key: up["filer"].filer.find_entry(
+            f"/buckets/{GATEWAY_BUCKET}/{key}") for key, _ in files}
+        fids = {key: [ch.file_id for ch in sorted(e.chunks,
+                                                  key=lambda ch: ch.offset)]
+                for key, e in entries.items()}
+        check(all(len(fids[k]) == len(s3_chunks(s, part)) for k, s in files),
+              "an object's chunk count differs from its parts")
+        big, ivs_all = {}, {}
+        for c in colls:
+            with open(bases[c] + ".ecx", "rb") as f:
+                nids = [key for key, _, _ in walk_index_blob(f.read())]
+            ivs = lost_intervals(bases[c], lost, vs.store.ec_large_block,
+                                 vs.store.ec_small_block, nids)
+            ivs_all[c] = ivs
+            big[c] = Counter(iv[0] for iv in ivs if iv[3] >= threshold)
+
+        def drop_caches() -> None:
+            for c in colls:
+                vs.store.drop_cached_volume(vids[c])
+                vs.store.ec_recover_cache.drop_volume(vids[c])
+
+        def nid(fid: str) -> int:
+            return st.FileId.parse(fid).key
+
+        # -- 7. degraded reads
+        drop_caches()
+        check_cache_cold(vs.store, dict.fromkeys(
+            nid(f) for fl in fids.values() for f in fl),
+            ivs_all[GATEWAY_BUCKET], vids[GATEWAY_BUCKET])
+        lat_b = await counted("S3 GET degraded", s3_get_all())
+        expected["S3 GET degraded"] = sum(big[GATEWAY_BUCKET].values())
+
+        async def ranges_cold():
+            for i, start, end in ranges:
+                drop_caches()
+                await s3_range(i, start, end)
+
+        await counted("S3 Range degraded", ranges_cold())
+        expected["S3 Range degraded"] = sum(
+            big[GATEWAY_BUCKET][nid(f)] for i, start, end in ranges
+            for f in fids[files[i][0]][start // part:end // part + 1])
+
+        async def signed_get_all() -> list[float]:
+            out = []
+            for key, _, _ in sobjs:
+                path = f"/{GATEWAY_SIGNED_BUCKET}/{key}"
+                out.append(await get_object(key, aurl + path,
+                                            params=presign_get(ahost, path)))
+            return out
+
+        drop_caches()
+        lat_s = await counted("signed GET degraded", signed_get_all())
+        expected["signed GET degraded"] = sum(
+            big[GATEWAY_SIGNED_BUCKET].values())
+        drop_caches()
+        lat_dav_b = await counted("WebDAV GET degraded", dav_get_all())
+        expected["WebDAV GET degraded"] = sum(
+            big[GATEWAY_DAV_COLLECTION].values())
+
+        replica = os.path.join(GATEWAY_DIR, "replica")
+        drop_caches()
+        out = await counted("filer.replicate", CliProcess(
+            "filer.replicate", [
+                "filer.replicate", "-notify", f"sqlite:{qpath}",
+                "-sourceMaster", master.url, "-sourceDir",
+                f"/buckets/{GATEWAY_BUCKET}", "-sink", f"local:{replica}",
+                "-progress", os.path.join(GATEWAY_DIR, "replicate.progress"),
+                "-once"], logs).run())
+        expected["filer.replicate"] = sum(big[GATEWAY_BUCKET].values())
+        check(re.search(r"replicated \d+ events", out) is not None,
+              f"filer.replicate: {out[-500:]}")
+
+        def replica_shas() -> dict:
+            got = {}
+            for d, _, names in os.walk(replica):
+                for n in names:
+                    p = os.path.join(d, n)
+                    h = hashlib.sha256()
+                    with open(p, "rb") as f:
+                        for block in iter(lambda: f.read(MIB), b""):
+                            h.update(block)
+                    got[os.path.relpath(p, replica)] = h.hexdigest()
+            return got
+
+        got = await in_thread(replica_shas)
+        check(got == {k: shas[k] for k, _ in files},
+              f"the replica differs from {GATEWAY_BUCKET}: "
+              f"{len(got)} files, {sum(got.get(k) == shas[k] for k, _ in files)}"
+              f" equal of {len(files)}")
+        for step in GATEWAY_QUIET_STEPS:
+            expected[step] = 0
+        for c in colls:
+            host_n, card_n = split_at(ivs_all[c], threshold)
+            print(f"  degraded {c}: shards {lost} lost, {len(ivs_all[c])} "
+                  f"intervals on them, {host_n} under the {threshold}-byte "
+                  f"threshold (host), {card_n} at or above it (K1) {tag}")
+        for name, lat in (("S3 intact", lat_a), ("S3 degraded", lat_b),
+                          ("signed presigned degraded", lat_s),
+                          ("WebDAV intact", lat_dav_a),
+                          ("WebDAV degraded", lat_dav_b)):
+            print(f"  GET {name}: {len(lat)} objects in {sum(lat):.3f} s, "
+                  f"latency p50 {percentile_ms(lat, 50):.4f} ms, p99 "
+                  f"{percentile_ms(lat, 99):.4f} ms {tag}")
+        print(f"  filer.replicate -once (a subprocess): {len(got)} objects "
+              f"sha256-equal in {timing['filer.replicate']:.3f} s {tag}")
+        print(f"  wall seconds per step: "
+              f"{ {k: round(v, 4) for k, v in timing.items()} } {tag}")
+        print(f"  gateway path kernel launches per step: {launches} {tag}")
+        for p in (s3alone, davp):
+            await p.stop()
+    finally:
+        await http.close()
+        for p in (s3alone, davp):
+            await p.kill()
+        queue.close()
+        await cli.stop_server(up)
+        if rec is not None:
+            rec.cancel()
+    return {"launches": launches, "expected": expected, "timing": timing,
+            "objects": len(files), "lost": lost, "volumes": vids,
+            "intervals": {c: len(v) for c, v in ivs_all.items()}}
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3410,6 +4448,9 @@ def parse_args(argv=None):
                    help="size of the second volume phase 9 writes")
     p.add_argument("--workers-mib", type=int, default=256,
                    help="size of each volume of phase 10's -workers 2")
+    p.add_argument("--gateway-mib", type=int, default=1024,
+                   help="size of phase 13's object tree (phase 12's tree "
+                        "at this size)")
     return p.parse_args(argv)
 
 
@@ -3475,6 +4516,7 @@ def main(argv=None) -> int:
     max_err = phase_kernel_vs_plain(dev, args.seed)
     stacked_err = phase_stacked_vs_plain(dev, args.seed)
     mxu_err = phase_mxu_vs_plain(dev, args.seed)
+    crc_err = phase_crc32c_vs_plain(dev, args.seed)
     torch.cuda.empty_cache()
 
     print("== phase 3: flagship steps at full width")
@@ -3499,6 +4541,7 @@ def main(argv=None) -> int:
     print("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
     t4 = time_mxu(dev, args.seed, card, report)
+    t5 = time_crc32c(dev, args.seed, card, report)
 
     print("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
     with pdist.init(device="cuda"):
@@ -3591,12 +4634,29 @@ def main(argv=None) -> int:
           f"the reckoning from the seed alone {predicted}; no module of jax "
           f"or seaweedfs_tpu in this process")
 
+    print("== phase 13: the gateways (server -filer -s3, a signed "
+          "standalone s3, webdav, filer.replicate): writes, ec.encode of "
+          "each collection, 4 shards lost, degraded reads through K1")
+    gateway = phase_gateway(dev, args.seed, args.gateway_mib * MIB,
+                            card=card)
+    gateway_launches = check_store_counts(gateway, "gateway path")
+    predicted = gateway_prediction(args.seed, args.gateway_mib * MIB)
+    check(within_prediction(gateway["launches"], predicted),
+          f"phase 13 launched K1 {gateway['launches']} times per step; the "
+          f"reckoning from the seed alone is {predicted}")
+    bad = forbidden_loaded()
+    check(bad == [], f"this process loaded {bad[:5]}")
+    print(f"  launches on the gateway path: {gateway_launches}, each step's "
+          f"equal to its count from the .ecx {gateway['expected']} and "
+          f"within the reckoning from the seed alone {predicted}; no module "
+          f"of jax or seaweedfs_tpu in this process or its subprocesses")
+
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
         "launches": main_launches + store_launches + server_launches
-        + mxu_k1 + cluster_launches + filer_launches,
+        + mxu_k1 + cluster_launches + filer_launches + gateway_launches,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3616,6 +4676,13 @@ def main(argv=None) -> int:
         "max_abs_err": mxu_err,
         "ms": t4["ms"], "plain_ms": t4["plain_ms"],
         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
+        "library_ms": None, "held_against_plain": True}, {
+        "name": "crc32c_batch", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/ops/csrc/crc32c.cu",
+        "replaces": "seaweedfs_tpu/ops/crc32c_jax.py:95",
+        "launches": t5["launches"], "max_abs_err": crc_err,
+        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
         "library_ms": None, "held_against_plain": True}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """`weed`-style CLI of the PyTorch port: the master, the volume server,
-the filer, the admin shell, the clients and the offline volume tools.
+the filer and its gateways, the admin shell, the clients and the offline
+volume tools.
 
     python -m seaweedfs_tpu_torch.cli master -port 9333 [-mdir D] \\
         [-peers H:P,...] [-workers N] [-volumeSizeLimitMB 30000] ...
@@ -7,6 +8,14 @@ the filer, the admin shell, the clients and the offline volume tools.
         -master 127.0.0.1:9333 [-ecBackend auto|gpu|cpu] [-workers N] ...
     python -m seaweedfs_tpu_torch.cli filer -port 8888 \\
         -master 127.0.0.1:9333 [-store sqlite -dbPath ./filer.db] ...
+    python -m seaweedfs_tpu_torch.cli server -dir ./data [-filer] [-s3] \\
+        [-masterPort 9333 -volumePort 8080 -filerPort 8888 -s3Port 8333]
+    python -m seaweedfs_tpu_torch.cli s3 -port 8333 -master H:P \\
+        [-store sqlite -dbPath ./s3filer.db] [-accessKey K -secretKey S]
+    python -m seaweedfs_tpu_torch.cli webdav -port 7333 -master H:P \\
+        [-store sqlite -dbPath ./webdav.db] [-chunkSizeMB 16]
+    python -m seaweedfs_tpu_torch.cli filer.replicate -notify sqlite:Q \\
+        -sourceMaster H:P -sink local:DIR [-once]
     python -m seaweedfs_tpu_torch.cli filer.copy DIR http://H:P/dir/
     python -m seaweedfs_tpu_torch.cli shell -master 127.0.0.1:9333 \\
         [-c 'ec.encode -collection x']
@@ -16,27 +25,30 @@ the filer, the admin shell, the clients and the offline volume tools.
     python -m seaweedfs_tpu_torch.cli backup -dir D -volumeId N -server H:P
 
 The port of seaweedfs_tpu/cli.py's `master`, `volume`, `filer`,
-`filer.copy`, `shell`, `upload`, `download`, `benchmark`, `scaffold`,
-`version`, `backup`, `fix`, `export` and `compact` subcommands (their
-flags, the runners and the process set-up of `main`, with the `-workers
-N` supervisor, master.toml's maintenance scripts and sequencer, and the
-filer's notification queue from -notify or a discovered
-notification.toml). The other subcommands (s3, webdav, mount, server,
-filer.replicate, bench-ec) are not ported yet. Start-up of one master,
-volume server or filer process is split out as `start_master(args)`,
-`start_volume(args)` and `start_filer(args)`, coroutines that return the
-started server and its flight recorder, so a program can drive the same
-entry points in process (chip_smoke.py does). `version` names this
-package.
+`filer.copy`, `s3`, `webdav`, `filer.replicate`, `server`, `shell`,
+`upload`, `download`, `benchmark`, `scaffold`, `version`, `backup`,
+`fix`, `export` and `compact` subcommands (their flags, the runners and
+the process set-up of `main`, with the `-workers N` supervisor,
+master.toml's maintenance scripts and sequencer, the filer's
+notification queue from -notify or a discovered notification.toml, and
+replication.toml's defaults for filer.replicate). `mount` and `bench-ec`
+are not ported yet. Start-up of one master, volume server or filer
+process, and of the combined `server`, is split out as
+`start_master(args)`, `start_volume(args)`, `start_filer(args)` and
+`start_server(args)`, coroutines that return the started server(s) and
+the flight recorder, so a program can drive the same entry points in
+process (chip_smoke.py does). `version` names this package.
 
 `-ecBackend` picks the EC engine through SWTPU_TORCH_EC_BACKEND (not the
 JAX package's SWTPU_EC_BACKEND): `gpu` is the CUDA kernel, `cpu` its
 plain PyTorch version on the host, and `auto` means `gpu`. Without a
 CUDA device `auto` and `gpu` fail at start-up; the server never serves
-EC on the CPU unless `-ecBackend cpu` asks for it. Under `-workers N`
-the supervisor re-executes this module once per worker; each worker
-checks the flag at start-up and launches its kernels in a CUDA context
-of its own.
+EC on the CPU unless `-ecBackend cpu` asks for it. `server` has no
+`-ecBackend`, as in the reference: its volume server runs `auto`, so
+SWTPU_TORCH_EC_BACKEND=cpu is how it serves EC on a host without a card.
+Under `-workers N` the supervisor re-executes this module once per
+worker; each worker checks the flag at start-up and launches its kernels
+in a CUDA context of its own.
 """
 
 from __future__ import annotations
@@ -392,6 +404,90 @@ def build_parser() -> argparse.ArgumentParser:
     fc.add_argument("-replication", default="")
     fc.add_argument("-ttl", default="",
                     help="time to live, e.g. 1m, 1h, 1d")
+
+    fr = sub.add_parser("filer.replicate",
+                        help="replay filer meta events into a sink "
+                             "(flags fall back to replication.toml)")
+    fr.add_argument("-notify", default="",
+                    help="subscription input: file:<path> | sqlite:<path> "
+                         "| kafka:<hosts>/<topic>[@offsets] | "
+                         "sqs:<region>/<queue> | pubsub:<project>/<topic>")
+    fr.add_argument("-sourceMaster", default="",
+                    help="source cluster master host:port")
+    fr.add_argument("-sourceDir", default="",
+                    help="replicate only this subtree")
+    fr.add_argument("-sink", default="",
+                    help="filer:<filerHost:port>@<targetMaster> | "
+                         "s3:<endpointUrl>/<bucket> | local:<dir>")
+    fr.add_argument("-sinkDir", default="")
+    fr.add_argument("-progress", default="")
+    fr.add_argument("-once", action="store_true",
+                    help="process the backlog and exit")
+
+    s3p = sub.add_parser("s3", help="start an S3 gateway")
+    _add_common(s3p)
+    s3p.add_argument("-port", type=int, default=8333)
+    s3p.add_argument("-store", default="sqlite")
+    s3p.add_argument("-dbPath", default="./s3filer.db")
+    s3p.add_argument("-accessKey", action="append", default=[],
+                     help="require SigV4 auth with this access key "
+                          "(repeatable — pair each with a -secretKey "
+                          "in the same order for multi-tenant "
+                          "credentials; empty = anonymous)")
+    s3p.add_argument("-secretKey", action="append", default=[])
+    s3p.add_argument("-domainName", default="",
+                     help="enable virtual-host-style requests "
+                          "(Host: bucket.<domainName>)")
+    s3p.add_argument("-cache.mem", dest="cache_mem", type=int, default=64,
+                     help="MB of memory for the chunk read cache "
+                          "(0 disables)")
+    s3p.add_argument("-cache.dir", dest="cache_dir", default="",
+                     help="directory for the mmap-backed disk cache tier")
+    s3p.add_argument("-shard.id", dest="shard_id", type=int, default=0,
+                     help="this gateway's filer shard id in a sharded "
+                          "gateway fleet")
+    s3p.add_argument("-shard.of", dest="shard_of", type=int, default=1,
+                     help="total gateway shards; >1 enables 307 "
+                          "routing of foreign buckets to siblings")
+    s3p.add_argument("-shard.peers", dest="shard_peers", default="",
+                     help="comma list of sibling gateway host:port "
+                          "addresses indexed by shard id")
+
+    wd = sub.add_parser("webdav", help="start a WebDAV gateway")
+    _add_common(wd)
+    wd.add_argument("-port", type=int, default=7333)
+    wd.add_argument("-store", default="sqlite",
+                    help="filer store: memory|sqlite")
+    wd.add_argument("-dbPath", default="./webdav.db")
+    wd.add_argument("-collection", default="")
+    wd.add_argument("-replication", default="")
+    wd.add_argument("-chunkSizeMB", type=int, default=16)
+    wd.add_argument("-cache.mem", dest="cache_mem", type=int, default=64,
+                    help="MB of memory for the chunk read cache "
+                         "(0 disables)")
+    wd.add_argument("-cache.dir", dest="cache_dir", default="",
+                    help="directory for the mmap-backed disk cache tier")
+    wd.add_argument("-shard.id", dest="shard_id", type=int, default=0,
+                    help="this gateway's filer shard id in a sharded "
+                         "gateway fleet")
+    wd.add_argument("-shard.of", dest="shard_of", type=int, default=1,
+                    help="total gateway shards; >1 enables 307 "
+                         "routing of foreign paths to siblings")
+    wd.add_argument("-shard.peers", dest="shard_peers", default="",
+                    help="comma list of sibling gateway host:port "
+                         "addresses indexed by shard id")
+
+    srv = sub.add_parser("server",
+                         help="combined master+volume+filer+s3 in one process")
+    _add_common(srv)
+    srv.add_argument("-dir", default="./data")
+    srv.add_argument("-masterPort", type=int, default=9333)
+    srv.add_argument("-volumePort", type=int, default=8080)
+    srv.add_argument("-filerPort", type=int, default=8888)
+    srv.add_argument("-s3Port", type=int, default=8333)
+    srv.add_argument("-s3", action="store_true")
+    srv.add_argument("-filer", action="store_true")
+    srv.add_argument("-jwtKey", default="")
 
     up = sub.add_parser("upload", help="upload files via assign+PUT")
     _add_common(up)
@@ -1036,6 +1132,247 @@ async def _run_filer_copy(args) -> None:
           + (f", {errors} errors" if errors else ""))
     if errors:
         raise SystemExit(1)
+
+
+def _make_subscription(spec: str):
+    """filer.replicate consumption input: the file/sqlite queues plus the
+    broker subscribers (replication/sub.py, driver-gated like the
+    publishers). Broker specs:
+      kafka:<host1,host2>/<topic>[@offset_file]
+      sqs:<region>/<queue_name>
+      pubsub:<project_id>/<topic>
+    """
+    kind, _, rest = spec.partition(":")
+    if kind in ("file", "sqlite"):  # NOT "log": it records, can't replay
+        return _make_queue(spec)
+    from .replication import sub as rsub
+    if kind == "kafka":
+        hosts, _, rest2 = rest.partition("/")
+        topic, _, offset_file = rest2.partition("@")
+        q = rsub.KafkaInput()
+        q.initialize({"hosts": hosts.split(","), "topic": topic,
+                      "offset_file": offset_file or None})
+        return q
+    if kind == "sqs":
+        region, _, name = rest.partition("/")
+        q = rsub.SqsInput()
+        q.initialize({"region": region, "sqs_queue_name": name})
+        return q
+    if kind == "pubsub":
+        project, _, topic = rest.partition("/")
+        q = rsub.GooglePubSubInput()
+        q.initialize({"project_id": project, "topic": topic})
+        return q
+    raise SystemExit(f"bad -notify spec {spec!r}; use file:<path> | "
+                     f"sqlite:<path> | kafka:<hosts>/<topic>[@offsets] | "
+                     f"sqs:<region>/<queue> | pubsub:<project>/<topic>")
+
+
+def _make_sink(spec: str, sink_dir: str):
+    from .replication.sink import FilerSink, LocalDirSink, S3Sink
+    kind, _, rest = spec.partition(":")
+    if kind == "filer":
+        target, _, master = rest.partition("@")
+        if not (target and master):
+            raise SystemExit(
+                "bad -sink: filer:<filerHost:port>@<targetMaster>")
+        return FilerSink(target, master, directory=sink_dir)
+    if kind == "s3":
+        endpoint, _, bucket = rest.rpartition("/")
+        if not (endpoint and bucket):
+            raise SystemExit("bad -sink: s3:<endpointUrl>/<bucket>")
+        return S3Sink(endpoint, bucket, directory=sink_dir)
+    if kind == "local":
+        return LocalDirSink(rest)
+    raise SystemExit(f"unknown sink kind {kind!r}")
+
+
+async def _run_filer_replicate(args) -> None:
+    from .replication.replicator import Replicator
+    from .replication.runner import replicate_from_queue
+    from .replication.source import FilerSource
+    # flags win; replication.toml [replication] fills whatever is absent
+    found = await tracing.run_in_executor(
+        _find_config_toml, "replication")
+    cfg = found[1].get("replication", {}) if found else {}
+    notify = args.notify or cfg.get("notify", "")
+    source_master = args.sourceMaster or cfg.get("sourceMaster", "")
+    source_dir = args.sourceDir or cfg.get("sourceDir", "/")
+    sink_spec = args.sink or cfg.get("sink", "")
+    sink_dir = args.sinkDir or cfg.get("sinkDir", "/")
+    progress = args.progress or cfg.get("progress",
+                                        "./replicate.progress")
+    missing = [f for f, v in (("-notify", notify),
+                              ("-sourceMaster", source_master),
+                              ("-sink", sink_spec)) if not v]
+    if missing:
+        raise SystemExit(
+            f"filer.replicate needs {', '.join(missing)} (flags or "
+            f"replication.toml [replication] keys)")
+    queue = await tracing.run_in_executor(_make_subscription, notify)
+    sink = _make_sink(sink_spec, sink_dir)
+    async with FilerSource(source_master, source_dir) as src:
+        await sink.start()
+        try:
+            n = await replicate_from_queue(
+                queue, Replicator(src, sink), progress,
+                once=args.once)
+            if args.once:
+                print(f"replicated {n} events")
+        finally:
+            await sink.close()
+            closer = getattr(queue, "close", None)
+            if closer is not None:
+                closer()
+
+
+def _gateway_router(args):
+    """-shard.of > 1: build the GatewayRouter for a sharded S3/WebDAV
+    fleet (one gateway per filer shard, siblings from -shard.peers)."""
+    if getattr(args, "shard_of", 1) <= 1:
+        return None
+    from .filer.shard import GatewayRouter
+    peers = {i: p.strip() for i, p in
+             enumerate(args.shard_peers.split(",")) if p.strip()}
+    return GatewayRouter(args.shard_id, args.master, peers)
+
+
+async def _run_s3(args) -> None:
+    from .filer.filer import Filer
+    from .s3.gateway import S3Gateway
+    from .stats import timeline
+    kwargs = _store_kwargs(args.store, args.dbPath)
+    if len(args.accessKey) != len(args.secretKey):
+        raise SystemExit("-accessKey and -secretKey must be paired "
+                         "(one -secretKey per -accessKey, same order)")
+    identities = (dict(zip(args.accessKey, args.secretKey))
+                  if args.accessKey else None)
+    filer = await tracing.run_in_executor(
+        lambda: Filer(args.store, **kwargs))
+    await tracing.run_in_executor(_attach_discovered_queue, filer)
+    s3 = S3Gateway(filer, args.master,
+                   ip=args.ip, port=args.port, identities=identities,
+                   domain_name=args.domainName,
+                   cache_mem_bytes=args.cache_mem * 1024 * 1024,
+                   cache_dir=args.cache_dir,
+                   shard_router=_gateway_router(args))
+    await s3.start()
+    rec = timeline.start_recorder()
+    print(f"s3 gateway listening on {s3.url}", flush=True)
+    try:
+        await _serve_until_interrupt(s3)
+    finally:
+        if rec is not None:
+            rec.cancel()
+
+
+async def _run_webdav(args) -> None:
+    from .filer.filer import Filer
+    from .server.webdav_server import WebDavServer
+    from .stats import timeline
+    kwargs = _store_kwargs(args.store, args.dbPath)
+    filer = await tracing.run_in_executor(
+        lambda: Filer(args.store, **kwargs))
+    await tracing.run_in_executor(_attach_discovered_queue, filer)
+    # ctor builds the disk chunk-cache tier (makedirs)
+    wd = await tracing.run_in_executor(lambda: WebDavServer(
+        filer, args.master,
+        ip=args.ip, port=args.port,
+        collection=args.collection,
+        replication=args.replication,
+        chunk_size=args.chunkSizeMB * 1024 * 1024,
+        cache_mem_bytes=args.cache_mem * 1024 * 1024,
+        cache_dir=args.cache_dir,
+        shard_router=_gateway_router(args)))
+    await wd.start()
+    rec = timeline.start_recorder()
+    print(f"webdav listening on {wd.url} (store={args.store})", flush=True)
+    try:
+        await _serve_until_interrupt(wd)
+    finally:
+        if rec is not None:
+            rec.cancel()
+
+
+async def start_server(args):
+    """Start `weed server` (command/server.go:103+) from parsed `server`
+    arguments: a master, a volume server on -dir, and with -filer or -s3 a
+    filer on -dir/filer.db (its queue from a discovered
+    notification.toml), and with -s3 an S3 gateway on that filer, all in
+    this process. Returns ({"master", "volume", "filer", "s3"}: the
+    servers, None where not started; recorder handle or None). The caller
+    stops the servers, data plane first, and cancels the recorder.
+
+    The volume server's EC engine is get_encoder("auto"): the card, or
+    SWTPU_TORCH_EC_BACKEND; with neither, start-up fails."""
+    from .ec import pipeline as ecpl
+    from .filer.filer import Filer
+    from .master.server import MasterServer
+    from .s3.gateway import S3Gateway
+    from .server.filer_server import FilerServer
+    from .server.volume_server import VolumeServer
+    from .stats import timeline
+    from .storage.store import Store
+    try:
+        ecpl.get_encoder("auto")
+    except RuntimeError as e:
+        raise SystemExit(f"server: {e} (set {ecpl.BACKEND_ENV}=cpu to "
+                         f"serve EC on the host)")
+    up = {"master": None, "volume": None, "filer": None, "s3": None}
+    try:
+        m = await tracing.run_in_executor(
+            lambda: MasterServer(ip=args.ip, port=args.masterPort,
+                                 jwt_key=args.jwtKey))
+        await m.start()
+        up["master"] = m
+        # combined mode gets the standalone daemons' default cache budgets
+        store = await tracing.run_in_executor(
+            lambda: Store([args.dir], needle_cache_bytes=32 << 20))
+        vs = VolumeServer(store, m.url, ip=args.ip, port=args.volumePort,
+                          jwt_key=args.jwtKey)
+        await vs.start()
+        up["volume"] = vs
+        await vs.heartbeat_once()
+        if args.filer or args.s3:
+            combined_filer = await tracing.run_in_executor(
+                lambda: Filer("sqlite",
+                              path=os.path.join(args.dir, "filer.db")))
+            await tracing.run_in_executor(
+                _attach_discovered_queue, combined_filer)
+            fs = FilerServer(combined_filer, m.url, ip=args.ip,
+                             port=args.filerPort, cache_mem_bytes=64 << 20)
+            await fs.start()
+            up["filer"] = fs
+        if args.s3:
+            s3 = S3Gateway(fs.filer, m.url, ip=args.ip, port=args.s3Port)
+            await s3.start()
+            up["s3"] = s3
+    except BaseException:
+        await stop_server(up)
+        raise
+    return up, timeline.start_recorder(disk_paths=[args.dir])
+
+
+async def stop_server(up: dict) -> None:
+    """Stop what start_server started: the data plane drains before the
+    control plane disappears."""
+    for name in ("s3", "filer", "volume", "master"):
+        if up.get(name) is not None:
+            await up[name].stop()
+
+
+async def _run_server(args) -> None:
+    up, rec = await start_server(args)
+    print("server up: " + " ".join(
+        f"{name}={srv.url}" for name, srv in up.items() if srv is not None),
+        flush=True)
+    try:
+        await _serve_until_interrupt(*[up[name] for name in
+                                       ("s3", "filer", "volume", "master")
+                                       if up[name] is not None])
+    finally:
+        if rec is not None:
+            rec.cancel()
 
 
 def _walk_upload_files(dir_path: str, include: str) -> list[str]:
@@ -1808,7 +2145,9 @@ def main(argv: list[str] | None = None) -> None:
                "filer": _run_filer, "filer.copy": _run_filer_copy,
                "upload": _run_upload, "download": _run_download,
                "benchmark": _run_benchmark, "shell": _run_shell,
-               "backup": _run_backup}
+               "backup": _run_backup, "s3": _run_s3,
+               "webdav": _run_webdav, "server": _run_server,
+               "filer.replicate": _run_filer_replicate}
     try:
         asyncio.run(runners[args.cmd](args))
     except KeyboardInterrupt:

@@ -25,7 +25,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
 # every kernel source of the package, by stem
-SOURCES = ("gf256_transform", "gf2_bitmatrix")
+SOURCES = ("gf256_transform", "gf2_bitmatrix", "crc32c")
 
 # -Xptxas=-v makes the compiler report each kernel's registers, shared
 # memory and spills; build_all hands that report back to the caller

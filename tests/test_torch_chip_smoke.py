@@ -631,3 +631,120 @@ def test_filer_prediction_bounds_every_offset():
                     b * mib - record + 8) if 0 <= o < row]
         assert chip_smoke.record_recover_bounds(record, lost) == \
             (min(counts), max(counts)), record
+
+
+def test_gateway_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 13 on about 10 MiB on the CPU: the port's combined `server
+    -filer -s3` in this process (SWTPU_TORCH_EC_BACKEND=cpu), the tree as
+    objects through its S3 (2 MiB parts), a signed standalone `cli s3`
+    and a `cli webdav` (-chunkSizeMB 2) in subprocesses that import no
+    jax, ec.encode of each collection through `cli shell -c`, 4 shards
+    lost, and the degraded reads through both gateways and `cli
+    filer.replicate`. As in the filer rehearsal, the encoder's calls of
+    the kernel's wrapper are counted in the wrapper's counter: each step
+    is held to its count from the .ecx and to gateway_prediction, the
+    reckoning from the seed alone."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+    from seaweedfs_tpu_torch.ec import encoder_torch
+    from seaweedfs_tpu_torch.ops import gf256_cuda
+
+    mib = chip_smoke.MIB
+    monkeypatch.setattr(chip_smoke, "FILER_LARGE", (2 * mib, 6 * mib))
+    monkeypatch.setattr(chip_smoke, "GATEWAY_DIR",
+                        os.path.join(REPO, ".smoke_gateway_rehearsal"))
+    transform = encoder_torch.gf256_transform
+
+    def counting(consts, x):
+        out = transform(consts, x)
+        gf256_cuda.count_launch()
+        return out
+
+    monkeypatch.setattr(encoder_torch, "gf256_transform", counting)
+    sizes = dict(part=2 * mib, signed=(20, 2),
+                 signed_large=(2 * mib, 3 * mib), dav=(30, 4))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        seen = chip_smoke.phase_gateway(torch.device("cpu"), 7, 10 * mib,
+                                        dav_chunk_mb=2, **sizes)
+    finally:
+        torch.set_num_threads(threads)
+    exp = seen["expected"]
+    assert chip_smoke.check_store_counts(seen, "gateway path") \
+        == sum(exp.values())
+    # at this size a chunk of 2-6 MiB may cover no whole block of a lost
+    # shard, so only the S3 pass (about 14 MiB of chunks) must recover one
+    assert exp["S3 GET degraded"] > 0
+    assert exp["filer.replicate"] == exp["S3 GET degraded"]
+    predicted = chip_smoke.gateway_prediction(7, 10 * mib,
+                                              dav_chunk=2 * mib, **sizes)
+    assert chip_smoke.within_prediction(seen["launches"], predicted)
+    for c in ("gw13", "gw13-signed", "gw13dav"):
+        assert predicted[f"ec.encode {c}"] == exp[f"ec.encode {c}"] >= 1
+    assert not os.path.exists(chip_smoke.GATEWAY_DIR)
+
+
+def test_gateway_signing_helpers_pass_the_ports_verifier():
+    """chip_smoke.py's SigV4 header signing, aws-chunked framing and
+    presigned GETs are accepted by the port's SigV4Verifier and decoder;
+    a wrong secret and a tampered last chunk are refused."""
+    import chip_smoke
+    from seaweedfs_tpu_torch.s3 import auth
+    v = auth.SigV4Verifier({chip_smoke.GATEWAY_KEY:
+                            chip_smoke.GATEWAY_SECRET})
+    data = bytes(range(256)) * 700
+    h = chip_smoke.sign_v4("PUT", "h:1", "/b/k", auth.STREAMING)
+    ctx = v.verify("PUT", "/b/k", {}, h, None)
+    assert auth.decode_aws_chunked(chip_smoke.aws_chunked(h, data),
+                                   ctx) == data
+    with pytest.raises(auth.AuthError):
+        auth.decode_aws_chunked(chip_smoke.aws_chunked(
+            h, data, tamper_last=True), ctx)
+    bad = chip_smoke.sign_v4("PUT", "h:1", "/b/k", auth.UNSIGNED,
+                             secret="WRONG")
+    with pytest.raises(auth.AuthError) as e:
+        v.verify("PUT", "/b/k", {}, bad, None)
+    assert e.value.code == "SignatureDoesNotMatch"
+    q = chip_smoke.presign_get("h:1", "/b/k")
+    assert v.verify("GET", "/b/k", q, {"host": "h:1"}, None) \
+        .access_key == chip_smoke.GATEWAY_KEY
+
+
+def test_crc32c_phases_rehearse_on_the_cpu(monkeypatch):
+    """Phase 2's K5 cases and phase 5's K5 timing on the CPU, with
+    bench.py's shape cut to (4, 4096) (the plain version's float32 bits
+    of (64, 1 MiB) take 2 GiB) and a timer that runs each call once:
+    every case equal to the host CRC, the bound by bytes, and the launch
+    count read around the one call of bench.py's path (0 here: a CPU
+    tensor runs the plain version and counts nothing)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "CRC_BENCH", (4, 4096))
+    names = [name for name, _, _ in chip_smoke.crc32c_cases(
+        torch.device("cpu"), 0)]
+    assert len(names) == len(chip_smoke.CRC_NS) + 1 + len(
+        chip_smoke.CRC_BLOCKS) + 4 + 1
+    assert chip_smoke.phase_crc32c_vs_plain(torch.device("cpu"), 0) == 0
+    calls = []
+
+    def timer(fn, iters, spin=True):
+        calls.append(iters)
+        fn()
+        return 1.0
+
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_115crc32c_segmentsEPKhxxxxiPKjS3_Pj' for "
+           "'sm_90a'\nptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 29 registers, used 1 barriers\n")
+    t = chip_smoke.time_crc32c(torch.device("cpu"), 0, "cpu",
+                               chip_smoke.ptxas_report(log), timer=timer)
+    assert calls == [50, 50, 3]
+    assert t["launches"] == 0 and t["ms"] == t["plain_ms"] == 1.0
+    assert t["registers"] == {"segments": {
+        "registers": 29, "spill_stores": 0, "spill_loads": 0}}
+    b = chip_smoke.crc32c_bound(64, 1 << 20)
+    assert b["bytes"] == 67_109_120 and b["bound_by"] == "bytes"
+    assert round(b["bound_ms"], 4) == 0.0200

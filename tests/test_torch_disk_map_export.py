@@ -1,8 +1,7 @@
 """DiskNeedleMap (LevelDbNeedleMap analog), vacuum throttler, tar export.
 
-The cases of tests/test_disk_map_export.py pointed at the port, less
-test_truncated_aws_chunked_rejected, which tests s3/ (not ported yet;
-ROADMAP Queue 1 M10.4)."""
+The cases of tests/test_disk_map_export.py pointed at the port,
+test_truncated_aws_chunked_rejected at the port's s3/auth.py."""
 
 from __future__ import annotations
 
@@ -66,6 +65,14 @@ def test_store_index_type_disk(tmp_path):
     got = st.read_needle(1, 5, cookie=2)
     assert bytes(got.data) == b"disk-map"
     st.close()
+
+
+def test_truncated_aws_chunked_rejected():
+    import pytest
+    from seaweedfs_tpu_torch.s3.auth import AuthError, decode_aws_chunked
+    # missing the terminal 0-size chunk: must not decode as complete
+    with pytest.raises(AuthError):
+        decode_aws_chunked(b"5;chunk-signature=aa\r\nhello\r\n")
 
 
 def test_throttler_paces_copy():

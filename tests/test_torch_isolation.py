@@ -54,6 +54,21 @@ GATED_STORES = {"seaweedfs_tpu_torch.filer.stores.redis_store": "redis",
                     "tikv_client"}
 
 
+# the gateways, replication and K5's wrapper
+GATEWAY_MODULES = ("seaweedfs_tpu_torch.s3",
+                   "seaweedfs_tpu_torch.s3.auth",
+                   "seaweedfs_tpu_torch.s3.gateway",
+                   "seaweedfs_tpu_torch.server.webdav_server",
+                   "seaweedfs_tpu_torch.replication",
+                   "seaweedfs_tpu_torch.replication.source",
+                   "seaweedfs_tpu_torch.replication.sink",
+                   "seaweedfs_tpu_torch.replication.replicator",
+                   "seaweedfs_tpu_torch.replication.runner",
+                   "seaweedfs_tpu_torch.replication.sub",
+                   "seaweedfs_tpu_torch.replication.cloud_sinks",
+                   "seaweedfs_tpu_torch.ops.crc32c_cuda")
+
+
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     mods = [_module_name(p) for p in _port_files()]
     code = (
@@ -121,7 +136,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.filer.stores.abstract_sql_store",
                 "seaweedfs_tpu_torch.notification.queues",
                 "seaweedfs_tpu_torch.notification.brokers",
-                "seaweedfs_tpu_torch.server.filer_server"):
+                "seaweedfs_tpu_torch.server.filer_server",
+                *GATEWAY_MODULES):
         assert mod in report["modules"], mod
     # a gated store fails on its own client library only
     for mod, missing in report["gated"].items():
@@ -200,6 +216,14 @@ def test_filer_module_alone_loads_no_jax(module):
     test_control_plane_module_alone_loads_no_jax(module)
 
 
+@pytest.mark.parametrize("module", GATEWAY_MODULES)
+def test_gateway_module_alone_loads_no_jax(module):
+    """Each module of the port's gateways and replication, and K5's
+    wrapper, imported alone in a fresh process, loads no jax and nothing
+    of seaweedfs_tpu."""
+    test_control_plane_module_alone_loads_no_jax(module)
+
+
 def test_every_filer_store_loads_no_jax(tmp_path):
     """create_store of every store name the reference knows (the gated
     ones fail with "unknown filer store" where their client library is
@@ -236,11 +260,14 @@ def test_every_filer_store_loads_no_jax(tmp_path):
     assert sorted(report["made"]) == sorted(report["available"])
 
 
-@pytest.mark.parametrize("cmd", ["master", "shell", "filer", "filer.copy"])
+@pytest.mark.parametrize("cmd", ["master", "shell", "filer", "filer.copy",
+                                 "s3", "webdav", "server",
+                                 "filer.replicate"])
 def test_cli_master_and_shell_entry_points_load_no_jax(cmd):
-    """`python -m seaweedfs_tpu_torch.cli master -h` (and `shell -h`,
-    `filer -h`, `filer.copy -h`) import no jax and nothing of seaweedfs_tpu: -X importtime lists every
-    module the command's process imports."""
+    """`python -m seaweedfs_tpu_torch.cli master -h` (and the same for
+    `shell`, `filer`, `filer.copy`, `s3`, `webdav`, `server` and
+    `filer.replicate`) imports no jax and nothing of seaweedfs_tpu: -X
+    importtime lists every module the command's process imports."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "seaweedfs_tpu_torch.cli",

@@ -4,8 +4,7 @@ deterministic ledger, bounded tenant metric labels, keyed retry
 budgets.
 
 The cases of tests/test_qos.py pointed at the port's qos/ registries
-and its stats/slo.py. Its S3 SlowDown case waits for s3/, not ported
-yet."""
+and its stats/slo.py, the S3 SlowDown case at the port's s3/ gateway."""
 
 from __future__ import annotations
 
@@ -420,6 +419,45 @@ def test_retry_budget_overflow_folds_past_max_pools():
     assert len(b._pools) <= RetryBudget.MAX_POOLS + 1
     assert b.allow_retry(f"up{RetryBudget.MAX_POOLS + 5}") in (True,
                                                                False)
+
+
+# ---- S3 shed response shape ----
+
+def test_s3_shed_is_aws_shaped_slowdown_with_retry_after():
+    from seaweedfs_tpu_torch.filer.filer import Filer
+    from seaweedfs_tpu_torch.s3.gateway import S3Gateway
+
+    clock = FakeClock()
+    tenants = {"default": TenantClass("default", 1.0, 1.0, 1.0)}
+    ctrl = AdmissionController(tenants, now=clock,
+                               probe=lambda: (0.0, 0.0))
+
+    async def go():
+        import aiohttp
+        gw = S3Gateway(Filer("memory"), "127.0.0.1:1", port=0,
+                       admission=ctrl)
+        await gw.start()
+        try:
+            async with aiohttp.ClientSession() as http:
+                base = f"http://{gw.url}"
+                async with http.put(f"{base}/b1") as r:
+                    assert r.status == 200, await r.text()
+                # burst 1 drained: the next request is throttled with
+                # the AWS SlowDown shape + an honest Retry-After
+                async with http.get(f"{base}/b1") as r:
+                    assert r.status == 429
+                    assert r.headers["Retry-After"] == "1"
+                    body = await r.read()
+                    assert b"<Code>SlowDown</Code>" in body
+                    assert b"reduce your request rate" in body
+                # the bucket refills exactly as advertised
+                clock.t += 1.0
+                async with http.get(f"{base}/b1") as r:
+                    assert r.status == 200
+        finally:
+            await gw.stop()
+
+    run(go())
 
 
 # ---- debug surface merge ----

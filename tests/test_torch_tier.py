@@ -9,9 +9,7 @@ package's own S3 gateway — dogfooding the gateway as the object tier.
 The cases of tests/test_tier.py pointed at the port's
 storage/volume_tier.py, its storage backends and failpoints and its
 volume servers (tests/test_torch_cluster_util.py). The remote store is
-the JAX package's filer and S3 gateway: the port has its own filer,
-but the gateway (s3/) is not ported yet and runs on the JAX package's
-Filer, so both stay the reference's until s3/ is ported."""
+the port's own S3 gateway on the port's Filer."""
 
 import asyncio
 import concurrent.futures
@@ -22,10 +20,8 @@ import pytest
 
 from test_torch_cluster_util import Cluster, run
 
-# the reference's Filer under the reference's S3Gateway: s3/ is not
-# ported yet, and the gateway drives the Filer it is given in process
-from seaweedfs_tpu.filer.filer import Filer
-from seaweedfs_tpu.s3.gateway import S3Gateway
+from seaweedfs_tpu_torch.filer.filer import Filer
+from seaweedfs_tpu_torch.s3.gateway import S3Gateway
 from seaweedfs_tpu_torch.storage import backend as bk
 from seaweedfs_tpu_torch.storage import volume_tier
 from seaweedfs_tpu_torch.storage.needle import Needle
