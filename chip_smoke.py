@@ -5,6 +5,7 @@
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
                           [--server-mib N] [--mxu-extra-mib N]
                           [--workers-mib N] [--gateway-mib N]
+                          [--parent-k5 DIR]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
 the fused kernel of the GF(2) bit-matrix product and the CRC32C kernel),
@@ -29,7 +30,14 @@ then:
    rows=k=16, k=1, every byte value in every input row, a ragged L =
    1 MiB + 3, L under 17 bytes, the pipeline block, a strided view, rows
    off a 16-byte boundary, and calls for which the plain version takes
-   several chunks (the kernel takes none);
+   several chunks (the kernel takes none); and the CRC32C kernel (K5's
+   port) equal to its plain version and the host CRC on the lengths,
+   edge rows and blocks of tests/test_crc32c_jax.py, strided rows, rows
+   1, 5 and 15 bytes off a 16-byte boundary, (64, 1 MiB), rows one byte
+   under and over each span size, (4096, 4096) (also in 64-byte spans,
+   more tiles than blocks) and 65,537 rows of 16 bytes, and one 128 MiB
+   row (to the host CRC alone) whose tile states stage 2 carries in 8
+   chunks;
 3. runs the flagship steps of models/ec_model.py (encode, rebuild of
    lost {0,3,7,9}, verify) on 10 shards x 256 MiB resident on the card,
    checks each against the plain version and times it;
@@ -46,7 +54,12 @@ then:
    adds an earlier K4 from DIR's copies of its two files, in turns with
    the fused kernel); and the CRC32C kernel on bench.py's path (its only
    caller in the JAX package: (64, 1 MiB) rows, each held to the host
-   CRC) with its plain version, its bound and each kernel's registers;
+   CRC) with its plain version, its bound, each kernel's registers,
+   spills and shared memory, the split of its time (split_crc32c: stage
+   1 in each variant of the source, stage 2, every span size) and, where
+   git can show commit K5_PARENT's K5 (or --parent-k5 names a directory
+   of its two files), that kernel held equal and timed in turns with
+   this one;
 6. runs the multi-device mesh path (parallel/mesh.py) on a one-rank NCCL
    group: full_cycle_step on --mesh-volumes x 10 shards x --mesh-mib MiB
    made from --seed, then batched_verify clean and after one flipped
@@ -1000,56 +1013,95 @@ def time_mxu(dev: torch.device, seed: int, card: str, report: dict,
 # -- K5: CRC32C of every row (phases 2 and 5) --------------------------------
 
 # the lengths and edge rows of tests/test_crc32c_jax.py, its explicit blocks,
-# and bench.py's (64, 1 MiB)
+# and bench.py's (64, 1 MiB); then shapes the persistent grid treats apart:
+# more rows than it has blocks, more rows than a grid's y dimension holds
+# (the limit of the kernel it replaced), and one row long enough for stage
+# 2 to carry its tile states in several chunks of 32
 CRC_NS = (1, 2, 7, 64, 255, 256, 1024, 4096, 12345)
 CRC_BLOCKS = (1, 2, 64, 256, 2048)
 CRC_BENCH = (64, MIB)
+CRC_MANY = (4096, 4096)
+CRC_TALL = (65537, 16)
+CRC_LONG = 128 * MIB
+# the commit of the K5 that load_parent_k5 times beside this one
+K5_PARENT = "1db9ba1"
 
 
 def crc32c_cases(dev: torch.device, seed: int):
-    """(name, (B, n) uint8 rows on `dev`, block or None) for phase 2."""
+    """(name, (B, n) uint8 rows on `dev`, block or None, span or None,
+    held to the plain version too) for phase 2. A span forces the
+    kernel's span size (crc32c_cuda.launch_kernel) where the wrapper would
+    pick another; rows of CRC_LONG bytes are held to the host CRC alone
+    (the plain version's PowMat would take minutes to build)."""
+    from seaweedfs_tpu_torch.ops.crc32c_cuda import SPANS
     rng = np.random.default_rng([seed, 5])
     for n in CRC_NS:
         yield (f"n={n}", torch.from_numpy(rng.integers(
-            0, 256, (4, n), dtype=np.uint8)).to(dev), None)
+            0, 256, (4, n), dtype=np.uint8)).to(dev), None, None, True)
     edge = np.stack([np.zeros(512, np.uint8), np.full(512, 0xFF, np.uint8),
                      np.eye(1, 512, 0, dtype=np.uint8)[0] * 0x80])
     yield "edge rows (zeros, 0xFF, one bit)", torch.from_numpy(edge).to(
-        dev), None
+        dev), None, None, True
     two = torch.from_numpy(rng.integers(0, 256, (2, 2048),
                                         dtype=np.uint8)).to(dev)
     for blk in CRC_BLOCKS:
-        yield f"(2, 2048) block={blk}", two, blk
+        yield f"(2, 2048) block={blk}", two, blk, None, True
     wide = torch.from_numpy(rng.integers(0, 256, (3, 5000),
                                          dtype=np.uint8)).to(dev)
-    yield "strided rows (3, 5000)[:, :4096]", wide[:, :4096], None
+    yield "strided rows (3, 5000)[:, :4096]", wide[:, :4096], None, None, True
     for off in (1, 5, 15):
         yield (f"rows {off} bytes off a 16-byte boundary",
-               wide[:, off:off + 4096], None)
+               wide[:, off:off + 4096], None, None, True)
     gen = torch.Generator(device=dev).manual_seed(seed + 9)
     yield f"bench shape {CRC_BENCH}", torch.randint(
-        0, 256, CRC_BENCH, dtype=torch.uint8, device=dev, generator=gen), None
+        0, 256, CRC_BENCH, dtype=torch.uint8, device=dev,
+        generator=gen), None, None, True
+    for span in SPANS:
+        for d in (-1, 1):
+            yield (f"(3, {span + d}) in spans of {span}: one byte "
+                   f"{'under' if d < 0 else 'over'} a span",
+                   torch.from_numpy(rng.integers(
+                       0, 256, (3, span + d), dtype=np.uint8)).to(dev),
+                   None, span, True)
+    many = torch.randint(0, 256, CRC_MANY, dtype=torch.uint8, device=dev,
+                         generator=gen)
+    yield f"{CRC_MANY}: more rows than blocks", many, None, None, True
+    yield (f"{CRC_MANY} in spans of 64: more tiles than blocks", many, None,
+           64, True)
+    yield (f"{CRC_TALL}: more than 65,535 rows", torch.randint(
+        0, 256, CRC_TALL, dtype=torch.uint8, device=dev, generator=gen),
+        None, None, True)
+    yield (f"(1, {CRC_LONG}): stage 2 carries several chunks",
+           torch.randint(0, 256, (1, CRC_LONG), dtype=torch.uint8,
+                         device=dev, generator=gen), None, None, False)
 
 
 def phase_crc32c_vs_plain(dev: torch.device, seed: int) -> int:
     """K5 against its plain version and the port's host util/crc32c on
     every case of crc32c_cases; returns the rows that differ (0)."""
     from seaweedfs_tpu_torch.ops.crc32c_cuda import (crc32c_batch,
-                                                     crc32c_batch_reference)
+                                                     crc32c_batch_reference,
+                                                     launch_kernel)
     from seaweedfs_tpu_torch.util.crc32c import crc32c
     mismatches = 0
-    for name, rows, blk in crc32c_cases(dev, seed):
-        got = crc32c_batch(rows)
-        want = crc32c_batch_reference(rows, block=blk)
+    for name, rows, blk, span, plain in crc32c_cases(dev, seed):
+        got = (crc32c_batch(rows) if span is None or dev.type != "cuda"
+               else launch_kernel(rows, span=span))
+        bad = 0
+        if plain:
+            bad += int((got != crc32c_batch_reference(rows, block=blk))
+                       .sum().item())
         sync(dev)
         host = [crc32c(r.tobytes()) for r in rows.cpu().numpy()]
-        bad = int((got != want).sum().item()) + sum(
-            int(a) != b for a, b in zip(got.cpu().tolist(), host))
+        bad += sum(int(a) != b for a, b in zip(got.cpu().tolist(), host))
         mismatches += bad
-        print(f"  K5 crc32c_batch vs plain and host: {name}: "
-              f"{bad} mismatches")
+        print(f"  K5 crc32c_batch vs {'plain and ' if plain else ''}host: "
+              f"{name}: {bad} mismatches")
         check(bad == 0, f"K5 differs from its plain version or the host "
               f"CRC: {name}")
+        del got, rows
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return mismatches
 
 
@@ -1068,15 +1120,148 @@ def crc32c_bound(rows: int, n: int) -> dict:
             "ops_ms": ops_ms}
 
 
+# a K5 kernel in a mangled name: crc32c_tiles<slice, mode, fold>, the
+# carry, or the earlier kernel's segments and fold
+K5_KERNEL = re.compile(r"\dcrc32c_([a-z]+)(?:ILi(\d+)ELi(\d+)ELb(\d)E)?")
+
+
+def k5_kernels(report: dict, smem: dict | None = None) -> dict:
+    """name -> ptxas facts of every K5 kernel in a ptxas `report`, with its
+    static shared memory from `smem` (ptxas_smem) where given."""
+    out = {}
+    for fn, facts in report.items():
+        m = K5_KERNEL.search(fn)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)},{m.group(3)},{m.group(4)}>"
+                                 if m.group(2) else "")
+            out[name] = dict(facts, **({"static_smem": smem.get(fn)}
+                                       if smem is not None else {}))
+    return out
+
+
+def ptxas_smem(log: str) -> dict:
+    """name -> static shared memory bytes of every entry function in an
+    nvcc -Xptxas=-v log (0 where ptxas reports none)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+            continue
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+    return out
+
+
+def k5_parent_sources(dest: str) -> str | None:
+    """Write the K5 of commit K5_PARENT (its ops/crc32c_cuda.py and
+    ops/csrc/crc32c.cu, from git show) into `dest`; returns dest, or None
+    where this checkout has no git history to take them from."""
+    os.makedirs(dest, exist_ok=True)
+    try:
+        for path in ("crc32c_cuda.py", "csrc/crc32c.cu"):
+            src = subprocess.run(
+                ["git", "-C", ROOT, "show",
+                 f"{K5_PARENT}:seaweedfs_tpu_torch/ops/{path}"],
+                capture_output=True, check=True, timeout=60).stdout
+            with open(os.path.join(dest, os.path.basename(path)), "wb") as f:
+                f.write(src)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return dest
+
+
+def load_parent_k5(parent: str):
+    """The wrapper module of an earlier K5 from `parent`, a directory
+    holding that commit's ops/crc32c_cuda.py and ops/csrc/crc32c.cu
+    (k5_parent_sources): both are copied into the package as
+    crc32c_cuda_parent.py and csrc/crc32c_parent.cu, the module is
+    imported and built, and the copies are removed again (the built
+    library stays in _build/). The module's `ptxas` holds the build's
+    register report, `smem` its shared memory."""
+    import importlib
+    ops = os.path.dirname(_build.CSRC)
+    py = os.path.join(ops, "crc32c_cuda_parent.py")
+    cu = os.path.join(_build.CSRC, "crc32c_parent.cu")
+    with open(os.path.join(parent, "crc32c_cuda.py")) as f:
+        src = f.read().replace('_build.load("crc32c")',
+                               '_build.load("crc32c_parent")')
+    try:
+        with open(py, "w") as f:
+            f.write(src)
+        shutil.copy(os.path.join(parent, "crc32c.cu"), cu)
+        mod = importlib.import_module(
+            "seaweedfs_tpu_torch.ops.crc32c_cuda_parent")
+        log = _build.build_all(("crc32c_parent",))["crc32c_parent"]
+        _build.load("crc32c_parent")
+    finally:
+        for path in (py, cu):
+            if os.path.exists(path):
+                os.remove(path)
+    mod.ptxas, mod.smem = ptxas_report(log), ptxas_smem(log)
+    return mod
+
+
+# the split's variants (csrc/crc32c.cu swtpu_crc32c_split), by number
+K5_VARIANTS = ("kernel", "constant lookups", "loads alone", "no fold",
+               "slicing-by-8, 16 copies")
+
+
+def split_crc32c(x: torch.Tensor, timer=cuda_ms) -> dict:
+    """K5's device time at the rows x, split: stage 1 alone in each of the
+    split's variants (the kernel; its lookups from one constant address,
+    so no index arithmetic and no bank can conflict; the loads alone; no
+    fold; slicing-by-8 over 16 copies of 8 tables), stage 2 alone, stage
+    1 and its loads alone with each thread's span read contiguously (not
+    woven), the whole kernel in every span size, and torch's sum of the
+    same bytes as float32 (a yardstick of the card's read rate, not the
+    same function). The slicing-by-8
+    variant, the contiguous spans and every span size are held equal to
+    the kernel first."""
+    from seaweedfs_tpu_torch.ops import crc32c_cuda as k5
+    want = k5.launch_kernel(x)
+    for variant in (0, 4):
+        check(torch.equal(k5.launch_kernel(x, variant=variant), want),
+              f"K5 variant {K5_VARIANTS[variant]} differs from the kernel")
+    for span in k5.SPANS:
+        check(torch.equal(k5.launch_kernel(x, span=span), want),
+              f"K5 in spans of {span} differs from the kernel")
+    out = {f"stage 1, {name}": timer(
+        lambda v=v: k5.launch_kernel(x, variant=v, stages=1), 50)
+        for v, name in enumerate(K5_VARIANTS)}
+    out["stage 2"] = timer(lambda: k5.launch_kernel(x, variant=0, stages=2),
+                           50)
+    check(torch.equal(k5.launch_kernel(x, woven=False), want),
+          "K5 with contiguous spans differs from the kernel")
+    out["stage 1, spans read contiguously"] = timer(
+        lambda: k5.launch_kernel(x, stages=1, woven=False), 50)
+    out["stage 1, loads alone, contiguously"] = timer(
+        lambda: k5.launch_kernel(x, variant=2, stages=1, woven=False), 50)
+    for span in k5.SPANS:
+        out[f"span {span}"] = timer(
+            lambda span=span: k5.launch_kernel(x, span=span), 50)
+    # not the same function, so no library_ms: a yardstick of the rate at
+    # which one PyTorch call reads the same bytes
+    words = x.view(torch.float32)
+    out["torch sum of the same bytes"] = timer(lambda: words.sum(), 50)
+    return out
+
+
 def time_crc32c(dev: torch.device, seed: int, card: str, report: dict,
-                timer=cuda_ms) -> dict:
+                timer=cuda_ms, parent=None, smem: dict | None = None
+                ) -> dict:
     """bench.py's CRC path (its only caller in the JAX package) on K5:
     the (64, 1 MiB) rows from `seed`, every row held to the host CRC, with
     the launch count read around that one call; then K5's time (device
     alone and back to back), the plain version's, the bound and its
-    share, and each kernel's registers and spills from the ptxas
-    `report`. `timer` is cuda_ms on the card; the tests rehearse on the
-    CPU with another."""
+    share, on the card the split (split_crc32c), and each kernel's
+    registers, spills and shared memory from the ptxas `report` and
+    `smem` (ptxas_smem). With `parent` (a module from load_parent_k5) the
+    earlier K5 is held to the same output bit for bit and timed in turns
+    with this one (parent, new, new, parent). `timer` is cuda_ms on the
+    card; the tests rehearse on the CPU with another."""
     from seaweedfs_tpu_torch.ops import crc32c_cuda
     from seaweedfs_tpu_torch.util.crc32c import crc32c
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
@@ -1094,22 +1279,46 @@ def time_crc32c(dev: torch.device, seed: int, card: str, report: dict,
     b2b_ms = timer(lambda: crc32c_cuda.crc32c_batch(x), 50, spin=False)
     plain_ms = timer(lambda: crc32c_cuda.crc32c_batch_reference(x), 3)
     b = crc32c_bound(rows, n)
-    regs = {fn.split("crc32c_")[-1].split("E")[0]: facts
-            for fn, facts in report.items() if "crc32c_" in fn}
+    regs = k5_kernels(report, smem)
+    out = {"launches": launches, "ms": ms, "b2b_ms": b2b_ms,
+           "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+           "bound_by": b["bound_by"], "registers": regs}
     print(f"  K5 crc32c_batch ({rows}, {n}) (bench.py's shape): "
           f"{launches} launch in bench.py's path, every row equal to the "
           f"host CRC; {ms:.4f} ms (device alone; back to back with the "
           f"host's calls {b2b_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
           f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes; "
           f"the GF(2) products as int8 ops {b['ops_ms']:.4f} ms), share "
-          f"{b['bound_ms'] / ms:.3f}; {rows * n / ms / 1e6:.1f} GB/s; "
-          f"registers and spills {regs} [{card}]")
+          f"{b['bound_ms'] / ms:.3f}; {rows * n / ms / 1e6:.1f} GB/s [{card}]")
+    if dev.type == "cuda":
+        sms = crc32c_cuda.sm_count(dev)
+        span = crc32c_cuda.pick_span(rows, n, sms)
+        out["split"] = split_crc32c(x, timer)
+        out["smem_bytes"] = crc32c_cuda.smem_bytes()
+        print(f"  K5 split at ({rows}, {n}): span {span}, "
+              f"{crc32c_cuda.tile_count(rows, n, span)} tiles on {sms} SMs; "
+              + "; ".join(f"{k} {v:.4f} ms (share {b['bound_ms'] / v:.3f})"
+                          for k, v in out["split"].items()) + f" [{card}]")
+        print(f"  K5 kernels (ptxas): {regs}; dynamic shared memory "
+              f"{out['smem_bytes']} B a stage-1 block [{card}]")
+    if parent is not None:
+        check(torch.equal(parent.crc32c_batch(x), got),
+              "the parent's K5 differs from this one")
+        turns = {"parent": [], "new": []}
+        for name in ("parent", "new", "new", "parent"):
+            fn = (parent if name == "parent" else crc32c_cuda).crc32c_batch
+            turns[name].append(timer(lambda fn=fn: fn(x), 20))
+        out["turns"] = turns
+        print(f"  K5 ({rows}, {n}) in turns with commit {K5_PARENT}'s "
+              f"kernel: parent {turns['parent'][0]:.4f}, "
+              f"{turns['parent'][1]:.4f} ms; new {turns['new'][0]:.4f}, "
+              f"{turns['new'][1]:.4f} ms; parent kernels (ptxas) "
+              f"{k5_kernels(parent.ptxas, parent.smem)}, no dynamic shared "
+              f"memory [{card}]")
     del x
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return {"launches": launches, "ms": ms, "b2b_ms": b2b_ms,
-            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "registers": regs}
+    return out
 
 
 # -- phase 6: the mesh path --------------------------------------------------
@@ -4451,6 +4660,11 @@ def parse_args(argv=None):
     p.add_argument("--gateway-mib", type=int, default=1024,
                    help="size of phase 13's object tree (phase 12's tree "
                         "at this size)")
+    p.add_argument("--parent-k5", default=None,
+                   help="a directory holding an earlier commit's "
+                        "ops/crc32c_cuda.py and ops/csrc/crc32c.cu, timed "
+                        "in turns with K5 in phase 5 (default: commit "
+                        f"{K5_PARENT}'s, where git can show them)")
     return p.parse_args(argv)
 
 
@@ -4473,9 +4687,10 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     print(f"  kernel build (nvcc, sm_90a, {len(_build.SOURCES)} sources in "
           f"parallel): {time.perf_counter() - t0:.2f} s")
-    report = {}
+    report, smem = {}, {}
     for name, log in logs.items():
         report.update(ptxas_report(log))
+        smem.update(ptxas_smem(log))
         for line in log.splitlines():
             if "gf2_bitmatrix" in name and not ("wgmma" in line
                                                 or "warning" in line):
@@ -4541,7 +4756,14 @@ def main(argv=None) -> int:
     print("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
     t4 = time_mxu(dev, args.seed, card, report)
-    t5 = time_crc32c(dev, args.seed, card, report)
+    parent_dir = args.parent_k5 or k5_parent_sources(
+        os.path.join(ROOT, ".smoke_tree", "k5_parent"))
+    parent_k5 = load_parent_k5(parent_dir) if parent_dir else None
+    if parent_k5 is None:
+        print(f"  K5's parent not timed: no --parent-k5 and no git history "
+              f"with commit {K5_PARENT}")
+    t5 = time_crc32c(dev, args.seed, card, report, parent=parent_k5,
+                     smem=smem)
 
     print("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
     with pdist.init(device="cuda"):

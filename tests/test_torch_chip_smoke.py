@@ -715,17 +715,28 @@ def test_gateway_signing_helpers_pass_the_ports_verifier():
 def test_crc32c_phases_rehearse_on_the_cpu(monkeypatch):
     """Phase 2's K5 cases and phase 5's K5 timing on the CPU, with
     bench.py's shape cut to (4, 4096) (the plain version's float32 bits
-    of (64, 1 MiB) take 2 GiB) and a timer that runs each call once:
-    every case equal to the host CRC, the bound by bytes, and the launch
-    count read around the one call of bench.py's path (0 here: a CPU
-    tensor runs the plain version and counts nothing)."""
+    of (64, 1 MiB) take 2 GiB), the many-rows case to (64, 4096) and the
+    long row to 4 MiB, and a timer that runs each call once: every case
+    equal to the host CRC, the bound by bytes, the launch count read
+    around the one call of bench.py's path (0 here: a CPU tensor runs the
+    plain version and counts nothing), the kernels' ptxas facts by name,
+    and the turns with a parent (here the port's own wrapper standing in
+    for the earlier kernel's module)."""
     monkeypatch.syspath_prepend(REPO)
+    import types
     import chip_smoke
+    from seaweedfs_tpu_torch.ops import crc32c_cuda
     monkeypatch.setattr(chip_smoke, "CRC_BENCH", (4, 4096))
-    names = [name for name, _, _ in chip_smoke.crc32c_cases(
-        torch.device("cpu"), 0)]
-    assert len(names) == len(chip_smoke.CRC_NS) + 1 + len(
-        chip_smoke.CRC_BLOCKS) + 4 + 1
+    monkeypatch.setattr(chip_smoke, "CRC_MANY", (64, 4096))
+    monkeypatch.setattr(chip_smoke, "CRC_LONG", 4 * chip_smoke.MIB)
+    cases = [(name, span, plain) for name, _, _, span, plain in
+             chip_smoke.crc32c_cases(torch.device("cpu"), 0)]
+    assert len(cases) == len(chip_smoke.CRC_NS) + 1 + len(
+        chip_smoke.CRC_BLOCKS) + 4 + 1 + 2 * len(crc32c_cuda.SPANS) + 4
+    assert [c for c in cases if not c[2]] == [
+        (f"(1, {4 * chip_smoke.MIB}): stage 2 carries several chunks",
+         None, False)]
+    assert sorted({c[1] for c in cases if c[1]}) == sorted(crc32c_cuda.SPANS)
     assert chip_smoke.phase_crc32c_vs_plain(torch.device("cpu"), 0) == 0
     calls = []
 
@@ -734,17 +745,30 @@ def test_crc32c_phases_rehearse_on_the_cpu(monkeypatch):
         fn()
         return 1.0
 
-    log = ("ptxas info    : Compiling entry function "
-           "'_ZN12_GLOBAL__N_115crc32c_segmentsEPKhxxxxiPKjS3_Pj' for "
+    name = ("_ZN12_GLOBAL__N_112crc32c_tilesILi4ELi0ELb1EEEvPKhxxxixiPKjS3_"
+            "jPjPx")
+    log = (f"ptxas info    : Compiling entry function '{name}' for "
            "'sm_90a'\nptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
-           "loads\nptxas info    : Used 29 registers, used 1 barriers\n")
-    t = chip_smoke.time_crc32c(torch.device("cpu"), 0, "cpu",
-                               chip_smoke.ptxas_report(log), timer=timer)
-    assert calls == [50, 50, 3]
+           "loads\nptxas info    : Used 40 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_112crc32c_carryEPKjxiS1_jPx' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 30 registers, used 1 barriers, "
+           "4224 bytes smem\n")
+    report, smem = chip_smoke.ptxas_report(log), chip_smoke.ptxas_smem(log)
+    parent = types.SimpleNamespace(crc32c_batch=crc32c_cuda.crc32c_batch,
+                                   ptxas=report, smem=smem)
+    t = chip_smoke.time_crc32c(torch.device("cpu"), 0, "cpu", report,
+                               timer=timer, parent=parent, smem=smem)
+    assert calls == [50, 50, 3, 20, 20, 20, 20]
     assert t["launches"] == 0 and t["ms"] == t["plain_ms"] == 1.0
-    assert t["registers"] == {"segments": {
-        "registers": 29, "spill_stores": 0, "spill_loads": 0}}
+    assert t["turns"] == {"parent": [1.0, 1.0], "new": [1.0, 1.0]}
+    assert t["registers"] == {
+        "tiles<4,0,1>": {"registers": 40, "spill_stores": 0,
+                         "spill_loads": 0, "static_smem": 0},
+        "carry": {"registers": 30, "spill_stores": 0, "spill_loads": 0,
+                  "static_smem": 4224}}
     b = chip_smoke.crc32c_bound(64, 1 << 20)
     assert b["bytes"] == 67_109_120 and b["bound_by"] == "bytes"
     assert round(b["bound_ms"], 4) == 0.0200
