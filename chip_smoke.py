@@ -5,6 +5,7 @@
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
                           [--server-mib N] [--mxu-extra-mib N]
                           [--workers-mib N] [--gateway-mib N]
+                          [--mount-mib N]
                           [--parent-k5 DIR]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
@@ -157,6 +158,24 @@ then:
    local tree, all sha256-equal, the degraded chunks recovered by K1 in
    this process; holds each step's launches to its count from the .ecx
    and to gateway_prediction, the reckoning from the seed alone;
+14. runs the FUSE mount, no module of seaweedfs_tpu in this process: a
+   port master and two port volume servers (-ecBackend gpu, -cache.mem
+   512) in process, a WFS over Filer("memory") with a collection of its
+   own and the 4 MiB chunk limit, as `cli mount` builds it, wrapped in
+   SeaweedFuseOps and served by the port's fusekernel.FUSE request loop
+   over a SOCK_SEQPACKET socketpair, whose other end the phase drives as
+   the kernel with FUSE 7.31 requests: INIT; MKDIR, then
+   CREATE/WRITE/FLUSH/RELEASE of phase 12's tree of --mount-mib bytes in
+   128 KiB WRITEs, one file after another; READDIR, LOOKUP and GETATTR
+   equal to the tree; OPEN/READ/RELEASE of every file in 128 KiB READs
+   (sha256); a RENAME, an UNLINK and SETXATTR/GETXATTR; ec.encode
+   -collection through the port's shell (every record of the .dat where
+   the seed puts it); shards {0,3,7,9} lost and the servers' caches
+   emptied; every file again through READs (sha256), the degraded chunks
+   recovered by K1; one READ at the start of each chunk of the largest
+   file with the caches emptied before each; DESTROY; holds each step's
+   launches to its count from the .ecx and to mount_prediction, the
+   reckoning from the seed alone;
    then prints one JSON line describing each kernel.
 
 The last line of standard output is
@@ -175,6 +194,7 @@ import os
 import posixpath
 import shutil
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -1930,15 +1950,16 @@ def dead_master() -> str:
 
 
 def server_args(backend: str, directory: str = SERVER_DIR,
-                master: str | None = None) -> list[str]:
-    """The port CLI's `volume` command line for phases 8, 9 and 11: port
-    0, the -cache.mem and -ec.smallrecover defaults written out, and an
+                master: str | None = None, cache_mb: int = 32) -> list[str]:
+    """The port CLI's `volume` command line for phases 8, 9 and 11-14:
+    port 0, the -cache.mem (unless `cache_mb` says otherwise) and
+    -ec.smallrecover defaults written out, and an
     unpaced scrubber (-scrub.mbps 0: the default 8 MiB/s would take
     minutes over a 1 GiB volume; phase 7's Scrubber runs unpaced too).
     With no `master` the heartbeats go where nothing listens."""
     return ["volume", "-port", "0", "-dir", directory,
             "-master", master or dead_master(), "-ecBackend", backend,
-            "-cache.mem", "32", "-ec.smallrecover", str(MIB),
+            "-cache.mem", str(cache_mb), "-ec.smallrecover", str(MIB),
             "-scrub.mbps", "0", "-scrub.pausems", "0"]
 
 
@@ -4638,6 +4659,687 @@ async def _drive_gateway(dev, seed, target, card, part, signed,
             "intervals": {c: len(v) for c, v in ivs_all.items()}}
 
 
+MOUNT_DIR = os.path.join(ROOT, ".smoke_mount")
+# the mount's own collection: ec.encode -collection takes its volume only
+MOUNT_COLLECTION = "mount14"
+# the mount CLI's -chunkSizeLimitMB default (seaweedfs_tpu/cli.py:563)
+MOUNT_CHUNK_MB = 4
+# the binding's max_write (fusekernel.MAX_WRITE): the size of each WRITE
+# and READ request the phase sends, as a kernel sends them for cp and cat
+FUSE_IO = 128 << 10
+# the shards lost before the degraded pass, on both servers
+MOUNT_LOST = (0, 3, 7, 9)
+# the volume servers' -cache.mem: the needle cache gets three quarters
+# and keeps needles of up to 1/64 of that (NeedleCache item_max), so 512
+# MiB holds a 4 MiB chunk between the 32 READs that each read it whole
+# (at the 32 MiB default, every READ of a degraded chunk recovers it)
+MOUNT_CACHE_MB = 512
+
+
+class FuseKernel:
+    """The kernel's side of a FUSE session: requests in the FUSE 7.31
+    layouts of include/uapi/linux/fuse.h, written to one end of a
+    SOCK_SEQPACKET socketpair whose other end a request loop reads as it
+    reads /dev/fuse (one request a read, one reply a write). Each call
+    waits for its reply and checks its unique id and length; `call`
+    returns (error, payload), `raw` the whole reply, the op methods
+    raise on an error."""
+
+    IN = struct.Struct("<IIQQIIII")      # len opcode unique nodeid uid gid pid pad
+    OUT = struct.Struct("<IiQ")          # len error unique
+    ATTR = struct.Struct("<QQQQQQIIIIIIIIII")
+    ENTRY = struct.Struct("<QQQQII")     # nodeid generation valid x2, nsec x2
+    OPEN = struct.Struct("<QII")         # fh open_flags padding
+    RW = struct.Struct("<QQIIQII")       # fuse_read_in / fuse_write_in
+    OPS = {"LOOKUP": 1, "GETATTR": 3, "SETATTR": 4, "MKDIR": 9,
+           "UNLINK": 10, "RMDIR": 11, "RENAME": 12, "OPEN": 14, "READ": 15,
+           "WRITE": 16, "STATFS": 17, "RELEASE": 18, "FSYNC": 20,
+           "SETXATTR": 21, "GETXATTR": 22, "LISTXATTR": 23,
+           "REMOVEXATTR": 24, "FLUSH": 25, "INIT": 26, "OPENDIR": 27,
+           "READDIR": 28, "RELEASEDIR": 29, "ACCESS": 34, "CREATE": 35,
+           "DESTROY": 38}
+    BIG_WRITES = 1 << 5
+
+    def __init__(self, sock) -> None:
+        self.sock = sock
+        self.unique = 0
+
+    @staticmethod
+    def name(s: str) -> bytes:
+        return s.encode() + b"\0"
+
+    def raw(self, op: str | int, nodeid: int = 1, body: bytes = b""
+            ) -> bytes:
+        """Send one request (an opcode by name, or by number) and return
+        its whole reply."""
+        self.unique += 1
+        self.sock.send(self.IN.pack(self.IN.size + len(body),
+                                    self.OPS.get(op, op), self.unique,
+                                    nodeid, 0, 0, 0, 0) + body)
+        reply = self.sock.recv(FUSE_IO + (1 << 16))
+        length, _, unique = self.OUT.unpack_from(reply)
+        check(unique == self.unique and length == len(reply),
+              f"FUSE {op}: reply {unique} of {length} bytes ({len(reply)} "
+              f"read) to request {self.unique}")
+        return reply
+
+    def call(self, op: str, nodeid: int = 1, body: bytes = b""
+             ) -> tuple[int, bytes]:
+        reply = self.raw(op, nodeid, body)
+        return self.OUT.unpack_from(reply)[1], reply[self.OUT.size:]
+
+    def ok(self, op: str, nodeid: int = 1, body: bytes = b"") -> bytes:
+        error, out = self.call(op, nodeid, body)
+        check(error == 0, f"FUSE {op} on node {nodeid}: error {error} "
+              f"({os.strerror(-error) if error < 0 else '?'})")
+        return out
+
+    def attr(self, raw: bytes, at: int = 0) -> dict:
+        f = self.ATTR.unpack_from(raw, at)
+        return {"ino": f[0], "size": f[1], "mtime": f[4], "mode": f[9]}
+
+    def init(self) -> tuple:
+        out = self.ok("INIT", 0, struct.pack("<IIII", 7, 31, FUSE_IO,
+                                             self.BIG_WRITES))
+        major, minor, _, flags, _, _, max_write = struct.unpack_from(
+            "<IIIIHHI", out)
+        return major, minor, flags, max_write
+
+    def lookup(self, parent: int, name: str) -> tuple[int, dict]:
+        out = self.ok("LOOKUP", parent, self.name(name))
+        return self.ENTRY.unpack_from(out)[0], self.attr(out, self.ENTRY.size)
+
+    def getattr(self, node: int) -> dict:
+        out = self.ok("GETATTR", node, struct.pack("<IIQ", 0, 0, 0))
+        return self.attr(out, 16)
+
+    def mkdir(self, parent: int, name: str, mode: int = 0o755) -> int:
+        out = self.ok("MKDIR", parent,
+                      struct.pack("<II", mode, 0o022) + self.name(name))
+        return self.ENTRY.unpack_from(out)[0]
+
+    def create(self, parent: int, name: str, mode: int = 0o100644
+               ) -> tuple[int, int]:
+        out = self.ok("CREATE", parent, struct.pack(
+            "<IIII", os.O_WRONLY | os.O_CREAT, mode, 0o022, 0)
+            + self.name(name))
+        fh = self.OPEN.unpack_from(out, self.ENTRY.size + self.ATTR.size)[0]
+        return self.ENTRY.unpack_from(out)[0], fh
+
+    def write(self, node: int, fh: int, offset: int, data: bytes) -> int:
+        out = self.ok("WRITE", node, self.RW.pack(
+            fh, offset, len(data), 0, 0, os.O_WRONLY, 0) + data)
+        return struct.unpack_from("<I", out)[0]
+
+    def open(self, node: int, flags: int = os.O_RDONLY) -> int:
+        return self.OPEN.unpack_from(
+            self.ok("OPEN", node, struct.pack("<II", flags, 0)))[0]
+
+    def read(self, node: int, fh: int, offset: int, size: int = FUSE_IO,
+             op: str = "READ") -> bytes:
+        return self.ok(op, node, self.RW.pack(fh, offset, size, 0, 0,
+                                              os.O_RDONLY, 0))
+
+    def flush(self, node: int, fh: int) -> None:
+        self.ok("FLUSH", node, struct.pack("<QIIQ", fh, 0, 0, 0))
+
+    def release(self, node: int, fh: int, op: str = "RELEASE") -> None:
+        self.ok(op, node, struct.pack("<QIIQ", fh, 0, 0, 0))
+
+    def readdir(self, node: int) -> list[str]:
+        """OPENDIR, READDIR in 4 KiB pages from each reply's last offset
+        until an empty one, RELEASEDIR: the names, "." and ".." left
+        out."""
+        fh = self.OPEN.unpack_from(self.ok("OPENDIR", node,
+                                           struct.pack("<II", 0, 0)))[0]
+        names, off = [], 0
+        while True:
+            out = self.read(node, fh, off, 4096, op="READDIR")
+            if not out:
+                break
+            at = 0
+            while at < len(out):
+                _, off, n, _ = struct.unpack_from("<QQII", out, at)
+                names.append(out[at + 24:at + 24 + n].decode())
+                at += (24 + n + 7) // 8 * 8
+        self.release(node, fh, op="RELEASEDIR")
+        return [n for n in names if n not in (".", "..")]
+
+    def rename(self, parent: int, old: str, new_parent: int,
+               new: str) -> None:
+        self.ok("RENAME", parent, struct.pack("<Q", new_parent)
+                + self.name(old) + self.name(new))
+
+    def unlink(self, parent: int, name: str) -> None:
+        self.ok("UNLINK", parent, self.name(name))
+
+    def setxattr(self, node: int, name: str, value: bytes) -> None:
+        self.ok("SETXATTR", node, struct.pack("<II", len(value), 0)
+                + self.name(name) + value)
+
+    def getxattr(self, node: int, name: str, size: int) -> bytes:
+        return self.ok("GETXATTR", node,
+                       struct.pack("<II", size, 0) + self.name(name))
+
+    def listxattr(self, node: int) -> list[str]:
+        out = self.ok("LISTXATTR", node, struct.pack("<II", 1 << 16, 0))
+        return [n.decode() for n in out.split(b"\0") if n]
+
+    def destroy(self) -> None:
+        self.ok("DESTROY", 1)
+
+
+def fuse_socketpair() -> tuple:
+    """(the kernel's end, the device's fd): a SOCK_SEQPACKET pair keeps
+    /dev/fuse's one message a read; the buffers take a WRITE request of
+    FUSE_IO bytes with its headers."""
+    import socket
+    kernel, device = socket.socketpair(socket.AF_UNIX, socket.SOCK_SEQPACKET)
+    for s in (kernel, device):
+        for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
+            s.setsockopt(socket.SOL_SOCKET, opt, 4 * MIB)
+    return kernel, device.detach()
+
+
+def serve_fuse(fusekernel, ops, mountpoint: str):
+    """Start fusekernel.FUSE(ops, mountpoint) on a thread of its own with
+    its _mount_dev_fuse replaced, for this call only, by one that hands
+    it the device end of fuse_socketpair(); returns (the kernel's side,
+    the thread). The loop serves until a DESTROY, then calls
+    ops.destroy."""
+    import threading
+    kernel_sock, device_fd = fuse_socketpair()
+    ready = threading.Event()
+    real = fusekernel._mount_dev_fuse
+    fusekernel._mount_dev_fuse = lambda mp, allow_other: device_fd
+    try:
+        t = threading.Thread(target=fusekernel.FUSE, args=(ops, mountpoint),
+                             kwargs={"ready_event": ready}, daemon=True)
+        t.start()
+        check(ready.wait(30), "the FUSE request loop did not start")
+    finally:
+        fusekernel._mount_dev_fuse = real
+    return FuseKernel(kernel_sock), t
+
+
+def mount_bytes(seed: int, i: int, size: int) -> bytes:
+    """The contents of file i of phase 14's tree."""
+    return np.random.default_rng([seed, 14, i]).bytes(size)
+
+
+def mount_plan(seed: int, target: int) -> dict:
+    """Phase 14's tree and its changes, from the seed alone: phase 12's
+    tree (filer_tree) of `target` bytes, two of its small files (one
+    renamed into another directory, one unlinked), and the large file
+    whose chunks the cold READs start."""
+    dirs, files = filer_tree(seed, target)
+    rng = np.random.default_rng([seed, 14])
+    small = [i for i, (_, size) in enumerate(files)
+             if size <= FILER_SMALL[1]]
+    moved, gone = (int(i) for i in rng.choice(small, 2, replace=False))
+    src = posixpath.dirname(files[moved][0])
+    dest = next(d for d in dirs if d != src)
+    renamed = f"{dest}/renamed-{posixpath.basename(files[moved][0])}"
+    largest = max(range(len(files)), key=lambda i: files[i][1])
+    return {"dirs": dirs, "files": files, "moved": moved,
+            "renamed": renamed, "gone": gone, "largest": largest}
+
+
+def mount_layout(seed: int, target: int, chunk: int = MOUNT_CHUNK_MB * MIB
+                 ) -> list[tuple]:
+    """The collection volume's records in .dat order, from the seed
+    alone: (file index, chunk index, offset, record bytes) of each
+    chunk, the files written one after another in chunk-size pieces
+    (aligned 128 KiB WRITEs fill the dirty-page buffer to the chunk
+    limit), then (file index, -1, offset, 32) for the tombstone each
+    chunk of the unlinked file gets."""
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    plan = mount_plan(seed, target)
+    out, pos = [], SUPER_BLOCK_SIZE
+    for i, (_, size) in enumerate(plan["files"]):
+        for j, c in enumerate(chunk_sizes(size, chunk)):
+            out.append((i, j, pos, chunk_record_size(c)))
+            pos += chunk_record_size(c)
+    tomb = st.actual_size(0, st.CURRENT_VERSION)
+    for _ in chunk_sizes(plan["files"][plan["gone"]][1], chunk):
+        out.append((plan["gone"], -1, pos, tomb))
+        pos += tomb
+    return out
+
+
+def walk_dat(path: str) -> list[tuple]:
+    """(offset, needle id, record bytes) of every record of a .dat,
+    walked from the super block by each header's size field."""
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    out = []
+    with open(path, "rb") as f:
+        pos, end = SUPER_BLOCK_SIZE, os.path.getsize(path)
+        while pos < end:
+            f.seek(pos)
+            head = f.read(st.NEEDLE_HEADER_SIZE)
+            nid = int.from_bytes(head[4:12], "big")
+            size = int.from_bytes(head[12:16], "big")
+            record = st.actual_size(size, st.CURRENT_VERSION)
+            out.append((pos, nid, record))
+            pos += record
+    return out
+
+
+def mount_prediction(seed: int, target: int,
+                     chunk: int = MOUNT_CHUNK_MB * MIB,
+                     lost: tuple = MOUNT_LOST) -> dict:
+    """Phase 14's K1 launches per step, reckoned on any host from the
+    seed alone. The files go in one at a time, so every chunk's offset
+    in the collection's one volume is known (mount_layout), and so are
+    the whole 1 MiB blocks on lost shards that each chunk record covers
+    (full_blocks_lost): the degraded pass recovers each once, since the
+    needle cache holds a chunk between the READs of it; each cold READ,
+    with the caches emptied first, recovers its chunk's whole. The
+    ec.encode count is the .dat's row batches."""
+    plan = mount_plan(seed, target)
+    layout = mount_layout(seed, target, chunk)
+    dat_size = layout[-1][2] + layout[-1][3]
+    lost_of = {(i, j): full_blocks_lost(off, rec, lost)
+               for i, j, off, rec in layout if j >= 0}
+    read = [i for i in range(len(plan["files"])) if i != plan["gone"]]
+    largest = plan["largest"]
+    n_large = len(chunk_sizes(plan["files"][largest][1], chunk))
+    return {"INIT": 0, "write": 0, "listing": 0, "READ intact": 0,
+            "rename, unlink, xattr": 0,
+            "ec.encode": batched_generate_launches(
+                dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE),
+            "READ degraded": sum(n for (i, _), n in lost_of.items()
+                                 if i in read),
+            "READ cold": sum(lost_of[(largest, j)] for j in range(n_large)),
+            "DESTROY": 0}
+
+
+def phase_mount(dev: torch.device, seed: int, target: int, *,
+                card: str = "", backend: str = "gpu",
+                chunk_mb: int = MOUNT_CHUNK_MB) -> dict:
+    """The FUSE mount over the port's own cluster, no module of
+    seaweedfs_tpu in this process: a port master (cli.start_master, its
+    volume limit twice the tree) and two port volume servers
+    (cli.start_volume, -ecBackend <backend>, -cache.mem MOUNT_CACHE_MB)
+    in process, and a WFS over Filer("memory") with a collection of its
+    own and MountOptions(chunk_size_limit=chunk_mb MiB), as `cli mount`
+    builds it, wrapped in the port's SeaweedFuseOps and served by the
+    port's fusekernel.FUSE request loop over a SOCK_SEQPACKET socketpair
+    (serve_fuse), whose other end this phase drives as the kernel:
+    INIT; MKDIR and CREATE/WRITE/FLUSH/RELEASE of a tree made from
+    `seed` up to `target` bytes, in 128 KiB WRITEs, one file after
+    another; READDIR, LOOKUP and GETATTR over the tree; OPEN/READ/RELEASE
+    of every file (sha256); a RENAME, an UNLINK and SETXATTR/GETXATTR;
+    ec.encode -collection; shards {0,3,7,9} lost and the caches emptied;
+    every file again through READs; one READ at the start of each chunk
+    of the largest file with the caches emptied before each; DESTROY.
+    Returns the launch counts, what the .ecx says they must be and the
+    timings."""
+    import asyncio
+    run_dir = os.path.join(MOUNT_DIR, "run")
+    shutil.rmtree(MOUNT_DIR, ignore_errors=True)
+    for d in ("m", "v0", "v1"):
+        os.makedirs(os.path.join(run_dir, d))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return asyncio.run(_drive_mount(dev, seed, target, run_dir, card,
+                                        backend, chunk_mb * MIB))
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(MOUNT_DIR, ignore_errors=True)
+
+
+async def _drive_mount(dev: torch.device, seed: int, target: int,
+                       run_dir: str, card: str, backend: str,
+                       chunk: int) -> dict:
+    import asyncio
+    import contextlib
+    import errno
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.filer.filer import Filer
+    from seaweedfs_tpu_torch.mount import fuse_adapter, fusekernel
+    from seaweedfs_tpu_torch.mount.wfs import WFS, MountOptions
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.shell.runner import dispatch
+
+    tag = f"[{card}]" if card else ""
+    launches, expected, timing = {}, {}, {}
+    plan = mount_plan(seed, target)
+    dirs, files = plan["dirs"], plan["files"]
+    paths = [rel for rel, _ in files]
+    total = sum(size for _, size in files)
+    shas = [hashlib.sha256(mount_bytes(seed, i, size)).hexdigest()
+            for i, (_, size) in enumerate(files)]
+    parser = cli.build_parser()
+    check(fuse_adapter.KERNEL_BINDING == "builtin",
+          f"the adapter took the {fuse_adapter.KERNEL_BINDING} binding")
+
+    async def counted(step: str, work):
+        """Await a coroutine, or run a function on a thread of its own
+        (the FUSE loop's replies need this loop to serve the servers'
+        HTTP), counting K1's launches."""
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = await (work if asyncio.iscoroutine(work)
+                     else asyncio.to_thread(work))
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    limit_mb = 2 * -(-target // MIB)
+    master, mrec = await cli.start_master(parser.parse_args(
+        cluster_master_args(run_dir, limit_mb)))
+    servers, recs = [], [mrec]
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    fuse_thread, kernel = None, None
+    try:
+        for i in range(2):
+            vs, rec = await cli.start_volume(parser.parse_args(
+                server_args(backend, os.path.join(run_dir, f"v{i}"),
+                            master=master.url, cache_mb=MOUNT_CACHE_MB)
+                + ["-max", str(CLUSTER_MAX_VOLUMES)]))
+            servers.append(vs)
+            recs.append(rec)
+            check(await vs.heartbeat_once(),
+                  f"volume server {vs.url} not registered with the master")
+        wfs = WFS(Filer("memory"), master.url,
+                  MountOptions(collection=MOUNT_COLLECTION,
+                               chunk_size_limit=chunk))
+        ops = await asyncio.to_thread(fuse_adapter.SeaweedFuseOps, wfs)
+        kernel, fuse_thread = await asyncio.to_thread(
+            serve_fuse, fusekernel, ops, os.path.join(run_dir, "mnt"))
+        node = {"": 1}
+
+        # -- 1. INIT
+        major, minor, flags, max_write = await counted("INIT", kernel.init)
+        check((major, minor, max_write) == (7, 31, FUSE_IO)
+              and flags & FuseKernel.BIG_WRITES,
+              f"INIT answered {major}.{minor}, flags {flags:#x}, max_write "
+              f"{max_write}")
+        print(f"  INIT: protocol {major}.{minor}, max_write {max_write}, "
+              f"the {fuse_adapter.KERNEL_BINDING} binding "
+              f"(fusekernel.FUSE) over a SOCK_SEQPACKET socketpair {tag}")
+
+        # -- 2. the tree, one file after another
+        def write_tree() -> None:
+            for d in dirs:
+                parent, _, name = d.rpartition("/")
+                node[d] = kernel.mkdir(node[parent], name)
+            for i, (rel, size) in enumerate(files):
+                parent, _, name = rel.rpartition("/")
+                nid, fh = kernel.create(node[parent], name)
+                node[rel] = nid
+                data = mount_bytes(seed, i, size)
+                for off in range(0, size, FUSE_IO):
+                    piece = data[off:off + FUSE_IO]
+                    check(kernel.write(nid, fh, off, piece) == len(piece),
+                          f"WRITE {rel} at {off}: short")
+                kernel.flush(nid, fh)
+                kernel.release(nid, fh)
+
+        n_writes = sum(-(-size // FUSE_IO) for _, size in files)
+        await counted("write", write_tree)
+        # each file's chunk fids, in offset order, before any change
+        fids = [[c.file_id for c in sorted(
+            wfs.filer.find_entry("/" + rel).chunks, key=lambda c: c.offset)]
+            for rel in paths]
+        check(all(len(fl) == len(chunk_sizes(size, chunk))
+                  for fl, (_, size) in zip(fids, files)),
+              "a file's chunk count differs from its size over the chunk "
+              "limit")
+        t = timing["write"]
+        print(f"  write: {len(files)} files in {len(dirs)} directories, "
+              f"{total} bytes in {n_writes} WRITEs of up to 128 KiB, one "
+              f"file after another, {t:.3f} s ({total / t / 1e6:.1f} MB/s "
+              f"through the mount) {tag}")
+
+        # -- 3. READDIR, LOOKUP and GETATTR over the tree
+        def list_tree() -> None:
+            for d in [""] + dirs:
+                want = sorted([posixpath.basename(x) for x in dirs
+                               if posixpath.dirname(x) == d]
+                              + [posixpath.basename(r) for r in paths
+                                 if posixpath.dirname(r) == d])
+                got = kernel.readdir(node[d])
+                check(sorted(got) == want, f"READDIR {d or '/'}: "
+                      f"{sorted(set(got) ^ set(want))[:4]} differ")
+            for rel, size in files:
+                parent, _, name = rel.rpartition("/")
+                nid, a = kernel.lookup(node[parent], name)
+                b = kernel.getattr(nid)
+                check(nid == node[rel] and a["size"] == b["size"] == size
+                      and b["mode"] & 0o170000 == 0o100000,
+                      f"{rel}: LOOKUP node {nid} size {a['size']}, GETATTR "
+                      f"size {b['size']} mode {b['mode']:o}; wrote {size}")
+
+        await counted("listing", list_tree)
+        print(f"  listing: READDIR of {len(dirs) + 1} directories equal to "
+              f"the tree, LOOKUP and GETATTR of {len(files)} files equal to "
+              f"their sizes, {timing['listing']:.3f} s {tag}")
+
+        def read_file(rel: str, i: int, lat: list) -> None:
+            nid = node[rel]
+            fh = kernel.open(nid)
+            h, off = hashlib.sha256(), 0
+            while True:
+                t0 = time.perf_counter()
+                out = kernel.read(nid, fh, off)
+                lat.append(time.perf_counter() - t0)
+                h.update(out)
+                off += len(out)
+                if len(out) < FUSE_IO:
+                    break
+            kernel.release(nid, fh)
+            check(off == files[i][1] and h.hexdigest() == shas[i],
+                  f"READ {rel}: {off} bytes, sha256 "
+                  f"{'equal' if h.hexdigest() == shas[i] else 'differs'}")
+
+        # -- 4. every file through OPEN/READ/RELEASE, intact
+        lat_a: list[float] = []
+        await counted("READ intact", lambda: [
+            read_file(rel, i, lat_a) for i, rel in enumerate(paths)])
+
+        # -- 5. a RENAME, an UNLINK and the xattrs
+        moved, gone, largest = plan["moved"], plan["gone"], plan["largest"]
+
+        def change_tree() -> None:
+            rel, new = paths[moved], plan["renamed"]
+            op_, _, on = rel.rpartition("/")
+            np_, _, nn = new.rpartition("/")
+            kernel.rename(node[op_], on, node[np_], nn)
+            err, _ = kernel.call("LOOKUP", node[op_], kernel.name(on))
+            check(err == -errno.ENOENT, f"LOOKUP {rel} after RENAME: {err}")
+            nid, a = kernel.lookup(node[np_], nn)
+            check(nid == node[rel] and a["size"] == files[moved][1],
+                  f"LOOKUP {new}: node {nid}, size {a['size']}")
+            node[new] = node.pop(rel)
+            paths[moved] = new
+            rel = paths[gone]
+            gp, _, gn = rel.rpartition("/")
+            kernel.unlink(node[gp], gn)
+            err, _ = kernel.call("LOOKUP", node[gp], kernel.name(gn))
+            check(err == -errno.ENOENT and gn not in kernel.readdir(node[gp]),
+                  f"{rel} still there after UNLINK: LOOKUP {err}")
+            target_node, value = node[paths[largest]], f"seed {seed}".encode()
+            kernel.setxattr(target_node, "user.seed", value)
+            size = struct.unpack_from(
+                "<I", kernel.getxattr(target_node, "user.seed", 0))[0]
+            got = kernel.getxattr(target_node, "user.seed", size)
+            check(size == len(value) and got == value
+                  and kernel.listxattr(target_node) == ["user.seed"],
+                  f"GETXATTR user.seed: size {size}, value {got!r}")
+            ops.lt.run(wfs.drain_deletes())
+
+        await counted("rename, unlink, xattr", change_tree)
+        print(f"  RENAME {files[moved][0]} -> {plan['renamed']}, UNLINK "
+              f"{files[gone][0]} (its chunks deleted), SETXATTR/GETXATTR "
+              f"user.seed on {paths[largest]}: each checked, "
+              f"{timing['rename, unlink, xattr']:.3f} s {tag}")
+
+        # -- 6. ec.encode -collection through the port's shell
+        vids = {int(fid.split(",")[0]) for fl in fids for fid in fl}
+        check(len(vids) == 1, f"the chunks landed in volumes {vids}, "
+              f"expected one")
+        vid = next(iter(vids))
+        for vs in servers:
+            await vs.heartbeat_once()
+        source = next(vs for vs in servers if vid in vs.store.volumes)
+        dat = os.path.join(source.store.dirs[0],
+                           f"{MOUNT_COLLECTION}_{vid}.dat")
+        layout = mount_layout(seed, target, chunk)
+        dat_size = layout[-1][2] + layout[-1][3]
+        deadline = time.monotonic() + 30
+        while (os.path.getsize(dat) < dat_size
+               and time.monotonic() < deadline):
+            await asyncio.sleep(0.05)     # the deletes' tombstones
+        walk = walk_dat(dat)
+        key = [st.FileId.parse(fid).key for fl in fids for fid in fl]
+        check([(off, rec) for off, _, rec in walk]
+              == [(off, rec) for _, _, off, rec in layout]
+              and [nid for _, nid, _ in walk[:len(key)]] == key
+              and sorted(nid for _, nid, _ in walk[len(key):])
+              == sorted(st.FileId.parse(f).key for f in fids[gone]),
+              f"volume {vid}'s .dat holds {len(walk)} records over "
+              f"{os.path.getsize(dat)} bytes; the seed puts {len(layout)} "
+              f"over {dat_size}, the chunks in the order written, then "
+              f"the unlinked file's tombstones")
+        nid_of = {fid: st.FileId.parse(fid).key
+                  for i, fl in enumerate(fids) if i != gone for fid in fl}
+
+        async def shell(command: str):
+            async with CommandEnv(master.url, http) as env:
+                return await dispatch(env, command)
+
+        res = await counted("ec.encode", shell(
+            f"ec.encode -collection {MOUNT_COLLECTION} -fullPercent 0"))
+        check(isinstance(res, list) and [r["volume"] for r in res]
+              == [vid], f"ec.encode answered {res}, expected volume {vid}")
+        spread = {u: sorted(s) for u, s in res[0]["assignments"].items()}
+        expected["ec.encode"] = batched_generate_launches(
+            dat_size, source.store.ec_large_block,
+            source.store.ec_small_block)
+        print(f"  ec.encode -collection {MOUNT_COLLECTION} (the port's "
+              f"shell): volume {vid}, the one the master grew for the "
+              f"collection, .dat {dat_size} bytes (each record where the "
+              f"seed puts it), {timing['ec.encode']:.3f} s, shards "
+              f"{spread} {tag}")
+
+        # -- 7. shards {0,3,7,9} lost, the servers' caches emptied
+        for vs in servers:
+            await vs.heartbeat_once()
+        lost = list(MOUNT_LOST)
+        for url, held in spread.items():
+            mine = [s for s in held if s in lost]
+            if not mine:
+                continue
+            for path in ("/admin/ec/unmount", "/admin/ec/delete_shards"):
+                async with http.post(f"http://{url}{path}", params={
+                        "volume": str(vid), "collection": MOUNT_COLLECTION,
+                        "shards": ",".join(map(str, mine))}) as r:
+                    check(r.status == 200, f"POST {path} on {url}: "
+                          f"{r.status} {await r.text()}")
+        for vs in servers:
+            ev = vs.store.ec_volumes.get(vid)
+            check(ev is not None and not set(ev.shards) & set(lost),
+                  f"{vs.url} still holds lost shards of volume {vid}")
+            vs.store.drop_cached_volume(vid)
+            vs.store.ec_recover_cache.drop_volume(vid)
+            await vs.heartbeat_once()
+        present = next(s for s in range(gf.TOTAL_SHARDS) if s not in lost)
+        holder = next(vs for vs in servers
+                      if present in vs.store.ec_volumes[vid].shards)
+        hbase = os.path.join(holder.store.dirs[0], f"{MOUNT_COLLECTION}_{vid}")
+        ivs = lost_intervals(hbase, lost, holder.store.ec_large_block,
+                             holder.store.ec_small_block,
+                             list(nid_of.values()))
+        for vs in servers:
+            check_cache_cold(vs.store, dict.fromkeys(nid_of.values()),
+                             ivs, vid)
+        threshold = holder.store.ec_volumes[vid].small_recover_bytes
+        big = Counter(iv[0] for iv in ivs if iv[3] >= threshold)
+
+        # -- 8. every file again through READs, degraded
+        lat_b: list[float] = []
+        await counted("READ degraded", lambda: [
+            read_file(rel, i, lat_b) for i, rel in enumerate(paths)
+            if i != gone])
+        expected["READ degraded"] = sum(big.values())
+        host_n, card_n = split_at(ivs, threshold)
+
+        # -- 9. one READ at the start of each chunk of the largest file,
+        # the servers' caches emptied before each
+        lat_c: list[float] = []
+        large = paths[largest]
+        starts = list(range(0, files[largest][1], chunk))
+        want = mount_bytes(seed, largest, files[largest][1])
+
+        def read_cold() -> None:
+            nid = node[large]
+            fh = kernel.open(nid)
+            for off in starts:
+                for vs in servers:
+                    vs.store.drop_cached_volume(vid)
+                    vs.store.ec_recover_cache.drop_volume(vid)
+                t0 = time.perf_counter()
+                out = kernel.read(nid, fh, off)
+                lat_c.append(time.perf_counter() - t0)
+                check(out == want[off:off + FUSE_IO],
+                      f"cold READ of {large} at {off} differs")
+            kernel.release(nid, fh)
+
+        await counted("READ cold", read_cold)
+        expected["READ cold"] = sum(big[nid_of[fid]]
+                                    for fid in fids[largest])
+        print(f"  degraded: shards {lost} lost, {len(ivs)} intervals on "
+              f"them: {host_n} under the {threshold}-byte threshold (host), "
+              f"{card_n} at or above it (K1); every file sha256-equal "
+              f"through READs; -cache.mem {MOUNT_CACHE_MB} {tag}")
+        for name, lat in (("intact", lat_a), ("degraded", lat_b),
+                          ("cold (caches emptied before each)", lat_c)):
+            print(f"  READ {name}: {len(lat)} requests of up to 128 KiB in "
+                  f"{sum(lat):.3f} s, latency p50 "
+                  f"{percentile_ms(lat, 50):.4f} ms, p99 "
+                  f"{percentile_ms(lat, 99):.4f} ms {tag}")
+
+        # -- 10. DESTROY: the loop answers, ends and closes the WFS
+        await counted("DESTROY", kernel.destroy)
+        await asyncio.to_thread(fuse_thread.join, 30)
+        check(not fuse_thread.is_alive(),
+              "the FUSE loop did not end after DESTROY")
+        check(not ops.lt.thread.is_alive(),
+              "SeaweedFuseOps' loop thread runs on after DESTROY")
+        for step in ("INIT", "write", "listing", "READ intact",
+                     "rename, unlink, xattr", "DESTROY"):
+            expected[step] = 0
+        print(f"  wall seconds per step: "
+              f"{ {k: round(v, 4) for k, v in timing.items()} } {tag}")
+        print(f"  mount path kernel launches per step: {launches} {tag}")
+    finally:
+        if fuse_thread is not None and fuse_thread.is_alive():
+            # a check failed between requests: end the session as the
+            # kernel would, so the loop closes the WFS and stops
+            with contextlib.suppress(Exception):
+                await asyncio.to_thread(kernel.call, "DESTROY")
+            await asyncio.to_thread(fuse_thread.join, 30)
+        if kernel is not None:
+            kernel.sock.close()
+        await http.close()
+        for vs in servers:
+            await vs.stop()
+        await master.stop()
+        for rec in recs:
+            if rec is not None:
+                rec.cancel()
+    return {"launches": launches, "expected": expected, "timing": timing,
+            "files": len(files), "intervals": len(ivs),
+            "split": (host_n, card_n), "lost": lost, "volume": vid,
+            "dat_size": dat_size, "walk": walk,
+            "read_s": {"intact": lat_a, "degraded": lat_b, "cold": lat_c}}
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4657,9 +5359,12 @@ def parse_args(argv=None):
                    help="size of the second volume phase 9 writes")
     p.add_argument("--workers-mib", type=int, default=256,
                    help="size of each volume of phase 10's -workers 2")
-    p.add_argument("--gateway-mib", type=int, default=1024,
+    p.add_argument("--gateway-mib", type=int, default=512,
                    help="size of phase 13's object tree (phase 12's tree "
                         "at this size)")
+    p.add_argument("--mount-mib", type=int, default=256,
+                   help="size of the tree phase 14 writes through the "
+                        "FUSE mount (phase 12's tree at this size)")
     p.add_argument("--parent-k5", default=None,
                    help="a directory holding an earlier commit's "
                         "ops/crc32c_cuda.py and ops/csrc/crc32c.cu, timed "
@@ -4668,7 +5373,31 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def left_running() -> tuple[list[str], list[str]]:
+    """What this process has left running: its live threads other than
+    the main one (name, and whether a daemon), and its child processes
+    (pid and command line, from /proc)."""
+    import threading
+    threads = [f"{t.name}{' (daemon)' if t.daemon else ''}"
+               for t in threading.enumerate()
+               if t is not threading.main_thread()]
+    children = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != os.getpid():
+                continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, ValueError, IndexError):
+            continue
+        children.append(f"{pid} {cmd[:120].strip()}")
+    return threads, children
+
+
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4873,12 +5602,36 @@ def main(argv=None) -> int:
           f"within the reckoning from the seed alone {predicted}; no module "
           f"of jax or seaweedfs_tpu in this process or its subprocesses")
 
+    print("== phase 14: the FUSE mount (mount/, the /dev/fuse wire binding "
+          "over a socketpair): a tree written and read back through FUSE "
+          "requests, ec.encode of its collection, shards {0,3,7,9} lost, "
+          "degraded READs through K1")
+    mount = phase_mount(dev, args.seed, args.mount_mib * MIB, card=card)
+    mount_launches = check_store_counts(mount, "mount path")
+    predicted = mount_prediction(args.seed, args.mount_mib * MIB)
+    check(mount["launches"] == predicted,
+          f"phase 14 launched K1 {mount['launches']} times per step; the "
+          f"reckoning from the seed alone is {predicted}")
+    bad = forbidden_loaded()
+    check(bad == [], f"this process loaded {bad[:5]}")
+    print(f"  launches on the mount path: {mount_launches}, each step's "
+          f"equal to its count from the .ecx {mount['expected']} and to the "
+          f"reckoning from the seed alone; no module of jax or "
+          f"seaweedfs_tpu in this process")
+
+    threads, children = left_running()
+    check(children == [], f"child processes left running: {children}")
+    print(f"  left running at the end: threads {threads}, no child "
+          f"process; {time.perf_counter() - t_script:.1f} s of script to "
+          f"here")
+
     print(json.dumps({"kernels": [{
         "name": "gf256_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
         "launches": main_launches + store_launches + server_launches
-        + mxu_k1 + cluster_launches + filer_launches + gateway_launches,
+        + mxu_k1 + cluster_launches + filer_launches + gateway_launches
+        + mount_launches,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

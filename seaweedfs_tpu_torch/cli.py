@@ -23,16 +23,20 @@ volume tools.
     python -m seaweedfs_tpu_torch.cli scaffold -config filer|version
     python -m seaweedfs_tpu_torch.cli compact|fix|export -dir D -volumeId N
     python -m seaweedfs_tpu_torch.cli backup -dir D -volumeId N -server H:P
+    python -m seaweedfs_tpu_torch.cli mount -dir /mnt/weed \\
+        -master 127.0.0.1:9333 [-collection C] [-chunkSizeLimitMB 4]
 
 The port of seaweedfs_tpu/cli.py's `master`, `volume`, `filer`,
 `filer.copy`, `s3`, `webdav`, `filer.replicate`, `server`, `shell`,
 `upload`, `download`, `benchmark`, `scaffold`, `version`, `backup`,
-`fix`, `export` and `compact` subcommands (their flags, the runners and
-the process set-up of `main`, with the `-workers N` supervisor,
-master.toml's maintenance scripts and sequencer, the filer's
+`fix`, `export`, `compact` and `mount` subcommands (their flags, the
+runners and the process set-up of `main`, with the `-workers N`
+supervisor, master.toml's maintenance scripts and sequencer, the filer's
 notification queue from -notify or a discovered notification.toml, and
-replication.toml's defaults for filer.replicate). `mount` and `bench-ec`
-are not ported yet. Start-up of one master, volume server or filer
+replication.toml's defaults for filer.replicate). `mount` serves a FUSE
+mount of an embedded filer (-filerStore) through mount/fuse_adapter.py,
+blocking until the mount point is unmounted. `bench-ec` is not ported
+yet. Start-up of one master, volume server or filer
 process, and of the combined `server`, is split out as
 `start_master(args)`, `start_volume(args)`, `start_filer(args)` and
 `start_server(args)`, coroutines that return the started server(s) and
@@ -559,6 +563,18 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("-config", default="security",
                     choices=["security", "master", "filer",
                              "notification", "replication"])
+
+    mt = sub.add_parser("mount", help="mount the filer as a FUSE "
+                                      "filesystem (fusepy, or the built-in "
+                                      "/dev/fuse binding)")
+    _add_common(mt)
+    mt.add_argument("-dir", required=True, help="mount point")
+    mt.add_argument("-collection", default="")
+    mt.add_argument("-replication", default="")
+    mt.add_argument("-ttl", default="")
+    mt.add_argument("-chunkSizeLimitMB", type=int, default=4)
+    mt.add_argument("-filerStore", default="memory",
+                    help="embedded filer store backing the mount")
 
     sub.add_parser("version", help="print version")
 
@@ -2021,6 +2037,20 @@ def _run_compact(args) -> None:
     v.close()
 
 
+def _run_mount(args) -> None:
+    """Serve a FUSE mount of an embedded filer until it is unmounted
+    (mount_std.go runMount): node metadata in -filerStore, chunk data
+    through the master at -master."""
+    from .filer.filer import Filer
+    from .mount.fuse_adapter import mount as fuse_mount
+    from .mount.wfs import MountOptions
+    fuse_mount(
+        Filer(args.filerStore), args.master, args.dir,
+        MountOptions(collection=args.collection,
+                     replication=args.replication, ttl=args.ttl,
+                     chunk_size_limit=args.chunkSizeLimitMB << 20))
+
+
 _SCAFFOLDS = {
     "security": """# security.toml (reference: weed scaffold -config=security)
 [jwt.signing]
@@ -2137,7 +2167,7 @@ def main(argv: list[str] | None = None) -> None:
             os._exit(0)
         return
     offline = {"fix": _run_fix, "export": _run_export,
-               "compact": _run_compact}
+               "compact": _run_compact, "mount": _run_mount}
     if args.cmd in offline:
         offline[args.cmd](args)
         return

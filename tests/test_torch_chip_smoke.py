@@ -772,3 +772,87 @@ def test_crc32c_phases_rehearse_on_the_cpu(monkeypatch):
     b = chip_smoke.crc32c_bound(64, 1 << 20)
     assert b["bytes"] == 67_109_120 and b["bound_by"] == "bytes"
     assert round(b["bound_ms"], 4) == 0.0200
+
+
+MOUNT_SEED, MOUNT_MIB = 3, 24
+
+
+@pytest.fixture(scope="module")
+def mount_rehearsal():
+    """Phase 14 once for this module, on a tree of 24 MiB on the CPU: a port
+    master, two port volume servers (-ecBackend cpu) and the port's mount
+    in this process, served by the port's FUSE loop over a socketpair.
+    Large files of 2-9 MiB stand in for 1-96 MiB; the 4 MiB chunk limit,
+    the 128 KiB requests and the 1 MiB recover threshold are the chip's.
+    As in the other rehearsals, the encoder's calls of the kernel's
+    wrapper are counted in the wrapper's counter."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.syspath_prepend(REPO)
+        mp.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+        import chip_smoke
+        from seaweedfs_tpu_torch.ec import encoder_torch
+        from seaweedfs_tpu_torch.ops import gf256_cuda
+
+        mib = chip_smoke.MIB
+        mp.setattr(chip_smoke, "FILER_LARGE", (2 * mib, 9 * mib))
+        mp.setattr(chip_smoke, "MOUNT_DIR",
+                   os.path.join(REPO, ".smoke_mount_rehearsal"))
+        transform = encoder_torch.gf256_transform
+
+        def counting(consts, x):
+            out = transform(consts, x)
+            gf256_cuda.count_launch()
+            return out
+
+        mp.setattr(encoder_torch, "gf256_transform", counting)
+        seen = chip_smoke.phase_mount(torch.device("cpu"), MOUNT_SEED,
+                                      MOUNT_MIB * mib, backend="cpu")
+        predicted = chip_smoke.mount_prediction(MOUNT_SEED, MOUNT_MIB * mib)
+        layout = chip_smoke.mount_layout(MOUNT_SEED, MOUNT_MIB * mib)
+        gone = os.path.exists(chip_smoke.MOUNT_DIR)
+        yield {"seen": seen, "predicted": predicted, "layout": layout,
+               "scratch_left": gone, "chip_smoke": chip_smoke}
+
+
+def test_mount_phase_rehearses_on_the_cpu(mount_rehearsal):
+    """Every step of phase 14 passed its checks (the tree written through
+    FUSE requests, listed, read back intact and with shards {0,3,7,9}
+    lost, sha256-equal; RENAME, UNLINK and the xattrs), and each step's
+    launches equal its count from the .ecx and the reckoning from the
+    seed alone; the phase leaves no scratch behind."""
+    r = mount_rehearsal
+    cs, seen = r["chip_smoke"], r["seen"]
+    exp = seen["expected"]
+    assert cs.check_store_counts(seen, "mount path") == sum(exp.values())
+    assert seen["launches"] == r["predicted"]
+    assert exp["READ degraded"] == seen["split"][1] > 0 and seen["split"][0] > 0
+    assert exp["ec.encode"] >= 1 and exp["READ cold"] >= 1
+    assert tuple(seen["lost"]) == cs.MOUNT_LOST
+    assert not r["scratch_left"]
+    # every READ went out at 128 KiB; the cold ones start each chunk
+    lat = seen["read_s"]
+    assert len(lat["degraded"]) < len(lat["intact"])   # one file unlinked
+    plan = cs.mount_plan(MOUNT_SEED, MOUNT_MIB * cs.MIB)
+    assert len(lat["cold"]) == len(cs.chunk_sizes(
+        plan["files"][plan["largest"]][1], cs.MOUNT_CHUNK_MB * cs.MIB))
+
+
+def test_mount_reckoning_matches_a_byte_walk(mount_rehearsal):
+    """mount_layout, the seed-only reckoning of where each chunk record
+    and tombstone lies in the collection's volume, equals the byte walk
+    (walk_dat) of the .dat the rehearsal wrote, record for record; and
+    mount_prediction's degraded counts follow from it through
+    full_blocks_lost."""
+    r = mount_rehearsal
+    cs, seen, layout = r["chip_smoke"], r["seen"], r["layout"]
+    assert [(off, rec) for off, _, rec in seen["walk"]] == \
+        [(off, rec) for _, _, off, rec in layout]
+    assert seen["dat_size"] == layout[-1][2] + layout[-1][3]
+    plan = cs.mount_plan(MOUNT_SEED, MOUNT_MIB * cs.MIB)
+    tombs = [row for row in layout if row[1] < 0]
+    assert len(tombs) == len(cs.chunk_sizes(
+        plan["files"][plan["gone"]][1], cs.MOUNT_CHUNK_MB * cs.MIB))
+    assert all(rec == 32 for *_, rec in tombs)
+    assert r["predicted"]["READ degraded"] == sum(
+        cs.full_blocks_lost(off, rec, cs.MOUNT_LOST)
+        for i, j, off, rec in layout if j >= 0 and i != plan["gone"])

@@ -415,3 +415,56 @@ def test_cli_backup_equals_the_reference(tmp_path):
     finally:
         _stop(proc)
     assert proc.returncode == 0, proc.stderr.read()[-2000:]
+
+
+def test_mount_parser_has_the_reference_flags_and_defaults():
+    """`mount` takes the reference's flags with its defaults: the common
+    ones, -dir (required), -collection, -replication, -ttl,
+    -chunkSizeLimitMB 4 and -filerStore memory."""
+    from seaweedfs_tpu import cli as ref_cli
+    from seaweedfs_tpu_torch import cli
+    from test_torch_cli_gateways import _actions
+    assert _actions(cli.build_parser(), "mount") == \
+        _actions(ref_cli.build_parser(), "mount")
+    argv = ["mount", "-dir", "/mnt/weed"]
+    assert vars(cli.build_parser().parse_args(argv)) == \
+        vars(ref_cli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["mount"])
+
+
+def test_mount_dispatch_builds_what_the_reference_builds():
+    """`cli mount` hands fuse_adapter.mount the same filer store, master,
+    mount point and MountOptions in the port as in the reference (each
+    run in a subprocess with fuse_adapter.mount replaced by a recorder,
+    so nothing is mounted); the port's process loads no jax."""
+    argv = ["mount", "-dir", "/mnt/weed", "-master", "10.0.0.1:9333",
+            "-collection", "pics", "-replication", "001", "-ttl", "3d",
+            "-chunkSizeLimitMB", "8", "-filerStore", "memory"]
+    code = (
+        "import dataclasses, importlib, json, sys\n"
+        "pkg = sys.argv[1]\n"
+        "fa = importlib.import_module(pkg + '.mount.fuse_adapter')\n"
+        "seen = {}\n"
+        "def record(filer, master, mountpoint, option=None, **kw):\n"
+        "    seen.update(store=type(filer.store).__name__, master=master,\n"
+        "                mountpoint=mountpoint,\n"
+        "                option=dataclasses.asdict(option))\n"
+        "fa.mount = record\n"
+        "importlib.import_module(pkg + '.cli').main(sys.argv[2:])\n"
+        "seen['jax'] = any(m.split('.')[0] in ('jax', 'jaxlib')\n"
+        "                  for m in sys.modules)\n"
+        "print(json.dumps(seen))\n")
+    out = {}
+    for pkg in ("seaweedfs_tpu_torch", "seaweedfs_tpu"):
+        proc = subprocess.run([sys.executable, "-c", code, pkg, *argv],
+                              cwd=REPO, env=_env(), capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        out[pkg] = json.loads(proc.stdout.strip().splitlines()[-1])
+    port, ref = out["seaweedfs_tpu_torch"], out["seaweedfs_tpu"]
+    assert port.pop("jax") is False
+    ref.pop("jax")
+    assert port == ref
+    assert port["option"]["chunk_size_limit"] == 8 << 20
+    assert port["master"] == "10.0.0.1:9333"

@@ -137,7 +137,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.notification.queues",
                 "seaweedfs_tpu_torch.notification.brokers",
                 "seaweedfs_tpu_torch.server.filer_server",
-                *GATEWAY_MODULES):
+                *GATEWAY_MODULES, *MOUNT_MODULES):
         assert mod in report["modules"], mod
     # a gated store fails on its own client library only
     for mod, missing in report["gated"].items():
@@ -224,6 +224,23 @@ def test_gateway_module_alone_loads_no_jax(module):
     test_control_plane_module_alone_loads_no_jax(module)
 
 
+MOUNT_MODULES = ("seaweedfs_tpu_torch.mount",
+                 "seaweedfs_tpu_torch.mount.dirty_pages",
+                 "seaweedfs_tpu_torch.mount.dir",
+                 "seaweedfs_tpu_torch.mount.file",
+                 "seaweedfs_tpu_torch.mount.wfs",
+                 "seaweedfs_tpu_torch.mount.fusekernel",
+                 "seaweedfs_tpu_torch.mount.fuse_adapter")
+
+
+@pytest.mark.parametrize("module", MOUNT_MODULES)
+def test_mount_module_alone_loads_no_jax(module):
+    """Each module of the port's mount (its nodes, the /dev/fuse binding
+    and the adapter), imported alone in a fresh process, loads no jax and
+    nothing of seaweedfs_tpu."""
+    test_control_plane_module_alone_loads_no_jax(module)
+
+
 def test_every_filer_store_loads_no_jax(tmp_path):
     """create_store of every store name the reference knows (the gated
     ones fail with "unknown filer store" where their client library is
@@ -262,11 +279,11 @@ def test_every_filer_store_loads_no_jax(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["master", "shell", "filer", "filer.copy",
                                  "s3", "webdav", "server",
-                                 "filer.replicate"])
+                                 "filer.replicate", "mount"])
 def test_cli_master_and_shell_entry_points_load_no_jax(cmd):
     """`python -m seaweedfs_tpu_torch.cli master -h` (and the same for
-    `shell`, `filer`, `filer.copy`, `s3`, `webdav`, `server` and
-    `filer.replicate`) imports no jax and nothing of seaweedfs_tpu: -X
+    `shell`, `filer`, `filer.copy`, `s3`, `webdav`, `server`,
+    `filer.replicate` and `mount`) imports no jax and nothing of seaweedfs_tpu: -X
     importtime lists every module the command's process imports."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
