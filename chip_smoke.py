@@ -105,11 +105,11 @@ then:
    SIGKILLed and respawned;
 11. runs the port's own cluster, no module of seaweedfs_tpu in any of
    its processes: a port master (cli.start_master, -volumeSizeLimitMB
-   1024, an unpaced -autopilot.mbps 0) and two port volume servers
+   --server-mib, an unpaced -autopilot.mbps 0) and two port volume servers
    (cli.start_volume, -ecBackend gpu) in process, and the port's shell in
    process and through `python -m seaweedfs_tpu_torch.cli shell -c` in a
    subprocess whose -X importtime log lists no jax module. Phase 8's
-   sealed 1 GiB volume (hard-linked) is the EC volume, and
+   sealed volume of --server-mib MiB (hard-linked) is the EC volume, and
    --cluster-assign-mib more go through /dir/assign and POST. ec.encode
    spreads its shards over both servers (parity sha256-equal to phase
    8's); every needle is read through /dir/lookup and GET intact and
@@ -125,12 +125,13 @@ then:
    limit twice --server-mib), two port volume servers (-ecBackend gpu)
    and a port filer (cli.start_filer at the CLI defaults: -store sqlite,
    -chunkSizeMB 32, -cache.mem 64, a collection of its own) in process.
-   A tree of about --server-mib bytes made from --seed (about 2,000
-   files of 1-64 KiB and about 50 of 1-96 MiB in 42 directories, three
-   deep) goes in through `python -m seaweedfs_tpu_torch.cli filer.copy`
-   in a subprocess whose -X importtime log lists no jax module; every
-   directory is listed (equal to the tree), every file read through the
-   filer (sha256) and 20 Range GETs across chunk boundaries run;
+   A tree of about --server-mib bytes made from --seed (a GiB of it
+   about 2,000 files of 1-64 KiB and about 50 of 1-96 MiB; 42
+   directories, three deep) goes in through `python -m
+   seaweedfs_tpu_torch.cli filer.copy` in a subprocess whose -X
+   importtime log lists no jax module; every directory is listed
+   (equal to the tree), every file read through the filer (sha256) and
+   20 Range GETs across chunk boundaries run;
    ec.encode -collection encodes the chunks' volume; 4 shards of one
    server are lost; the filer restarts on its sqlite store with a cold
    chunk cache; every file and the same ranges are read again, the
@@ -176,6 +177,18 @@ then:
    file with the caches emptied before each; DESTROY; holds each step's
    launches to its count from the .ecx and to mount_prediction, the
    reckoning from the seed alone;
+15. runs the port's `rebuild` soak (seaweedfs_tpu_torch/tools/soak.py,
+   scenario_rebuild) as `python -m seaweedfs_tpu_torch.tools.soak
+   rebuild` runs it, on subprocess daemons: a port master and 4 port
+   volume servers at their default -ecBackend
+   auto (the GPU), 900 files of 500-30,000 B at replication 000,
+   `ec.encode -fullPercent 1` through the shell subprocess, a SIGKILLed
+   shard holder, `ec.rebuild -force`, every file verified after each
+   step with 0 bad reads; right after ec.encode every live server that
+   received /admin/ec/generate, and right after ec.rebuild the
+   rebuilding server, holds a CUDA context (K1 ran in it); no daemon or
+   shell run imported jax or seaweedfs_tpu (PYTHONPROFILEIMPORTTIME=1
+   logs); nothing left running;
    then prints one JSON line describing each kernel.
 
 The last line of standard output is
@@ -5340,6 +5353,246 @@ async def _drive_mount(dev: torch.device, seed: int, target: int,
             "read_s": {"intact": lat_a, "degraded": lat_b, "cold": lat_c}}
 
 
+SOAK_DIR = os.path.join(ROOT, ".smoke_soak")
+# the rebuild soak's verify passes, in the order the scenario runs them
+SOAK_PASSES = ("after encode", "degraded (server killed)",
+               "after ec.rebuild")
+SOAK_FILES = 900          # the scenario's fill (tools/soak.py, rebuild)
+SOAK_DAEMONS = 5          # its master and 4 volume servers
+
+
+def shell_result(out: str):
+    """The JSON value that `cli shell -c` prints, from the captured
+    stdout + stderr of the run (log and import-trace lines around it), or
+    None where it printed none."""
+    dec = json.JSONDecoder()
+    pos = 0
+    for line in out.splitlines(keepends=True):
+        if line[:1] in "[{":
+            try:
+                return dec.raw_decode(out, pos)[0]
+            except ValueError:
+                pass
+        pos += len(line)
+    return None
+
+
+def volume_holders(master: str) -> dict[str, set[int]]:
+    """url -> the ids of the normal volumes the master lists on it."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://{master}/vol/volumes",
+                                timeout=30) as r:
+        body = json.load(r)
+    return {n["url"]: {m["id"] for m in n["volumes"]} for n in body["nodes"]}
+
+
+def phase_soak(card: str = "", on_card: bool = True,
+               base_port: int | None = None) -> dict:
+    """The port's `rebuild` soak (seaweedfs_tpu_torch/tools/soak.py,
+    scenario_rebuild) as `soak rebuild` runs it: a master and 4 volume
+    servers as `python -m seaweedfs_tpu_torch.cli` subprocesses, 900
+    files at replication 000, `ec.encode -fullPercent 1` through the
+    shell subprocess, a SIGKILLed shard holder, `ec.rebuild -force`, and
+    a verify of every file after each step. soak.py is wrapped from
+    outside for the call: its Procs class (the daemons' and the shell's
+    environment gets PYTHONPROFILEIMPORTTIME=1; on the card it drops
+    SWTPU_TORCH_EC_BACKEND, so each volume server runs its default
+    `auto`, the GPU) and its verify (timed). Holds: zero bad reads in
+    each pass; on the card, right after ec.encode every live volume
+    server that received /admin/ec/generate, and right after ec.rebuild
+    the rebuilding server, holds a CUDA context (K1 ran there; their
+    launches are not counted, they are other processes); no daemon and
+    no shell run imported jax or seaweedfs_tpu. `base_port` moves the
+    scenario's ports (soak.BASE_PORT) for the call."""
+    import asyncio
+    from seaweedfs_tpu_torch.tools import soak
+
+    shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    os.makedirs(SOAK_DIR)
+    tag = f"({card})" if card else "(CPU rehearsal)"
+    seen: dict = {"verify": [], "shell": [], "encode": {}, "rebuild": {}}
+
+    class WatchedProcs(soak.Procs):
+        def __init__(self, tmp: str):
+            super().__init__(tmp)
+            self.env["PYTHONPROFILEIMPORTTIME"] = "1"
+            self.env.pop(pl.METHOD_ENV, None)
+            if on_card:
+                self.env.pop(pl.BACKEND_ENV, None)
+
+        def server(self, url: str) -> dict:
+            port = url.rsplit(":", 1)[1]
+            for p in self.procs:
+                if p.args[3] == "volume" and \
+                        p.args[p.args.index("-port") + 1] == port:
+                    return {"pid": p.pid, "alive": p.poll() is None,
+                            "context": holds_cuda_context(p.pid)
+                            if on_card and p.poll() is None else None}
+            return {"pid": None, "alive": False, "context": None}
+
+        def shell(self, master: str, cmd: str) -> str:
+            verb = cmd.split()[0]
+            before = volume_holders(master) if verb == "ec.encode" else {}
+            t0 = time.perf_counter()
+            out = super().shell(master, cmd)
+            res = shell_result(out)
+            seen["shell"].append({
+                "cmd": cmd, "s": time.perf_counter() - t0,
+                "traced": "import time:" in out,
+                "forbidden": forbidden_imports(out), "result": res})
+            if verb == "ec.encode":
+                vids = {r["volume"] for r in res or ()}
+                seen["encode"] = {url: self.server(url)
+                                  for url, held in before.items()
+                                  if held & vids}
+            elif verb == "ec.rebuild":
+                seen["rebuild"] = {r["node"]: self.server(r["node"])
+                                   for r in res or () if "node" in r}
+            return out
+
+    plain_verify = soak.verify
+
+    async def timed_verify(client, payloads: dict, what: str) -> int:
+        t0 = time.perf_counter()
+        bad = await plain_verify(client, payloads, what)
+        seen["verify"].append({"pass": what, "bad": bad,
+                               "files": len(payloads),
+                               "s": time.perf_counter() - t0})
+        return bad
+
+    saved = (soak.Procs, soak.verify, soak.BASE_PORT)
+    soak.Procs, soak.verify = WatchedProcs, timed_verify
+    if base_port is not None:
+        soak.BASE_PORT = base_port
+    t0 = time.perf_counter()
+    try:
+        bad = asyncio.run(soak.scenario_rebuild(SOAK_DIR))
+        wall = time.perf_counter() - t0
+        logs = {}
+        for name in sorted(os.listdir(SOAK_DIR)):
+            if name.endswith(".log"):
+                with open(os.path.join(SOAK_DIR, name)) as f:
+                    logs[name] = f.read()
+        for v in seen["verify"]:
+            print(f"  verify {v['pass']}: bad={v['bad']}/{v['files']} in "
+                  f"{v['s']:.3f} s {tag}")
+        for s in seen["shell"]:
+            print(f"  shell {s['cmd']!r}: {s['s']:.3f} s {tag}")
+        print(f"  volume servers that received /admin/ec/generate, right "
+              f"after ec.encode: {seen['encode']}")
+        print(f"  the rebuilding server, right after ec.rebuild: "
+              f"{seen['rebuild']}")
+        check(bad == 0, f"the rebuild soak counted {bad} bad reads")
+        check([(v["pass"], v["bad"], v["files"]) for v in seen["verify"]]
+              == [(p, 0, SOAK_FILES) for p in SOAK_PASSES],
+              f"verify passes {seen['verify']}, expected "
+              f"{SOAK_PASSES} each with 0 bad of {SOAK_FILES}")
+        check([s["cmd"].split()[0] for s in seen["shell"]]
+              == ["ec.encode", "ec.rebuild"]
+              and all(s["result"] for s in seen["shell"]),
+              f"shell runs {seen['shell']}")
+        check(seen["encode"] and all(s["alive"]
+                                     for s in seen["encode"].values()),
+              f"no live volume server received /admin/ec/generate: "
+              f"{seen['encode']}")
+        check(seen["rebuild"] and all(s["alive"]
+                                      for s in seen["rebuild"].values()),
+              f"no live server rebuilt: {seen['rebuild']}")
+        if on_card:
+            for step in ("encode", "rebuild"):
+                check(all(s["context"] for s in seen[step].values()),
+                      f"a server of ec.{step} holds no CUDA context: "
+                      f"{seen[step]}")
+        check(len(logs) == SOAK_DAEMONS,
+              f"{len(logs)} daemon logs, expected {SOAK_DAEMONS}")
+        untraced = [name for name, text in logs.items()
+                    if "import time:" not in text]
+        untraced += [s["cmd"] for s in seen["shell"] if not s["traced"]]
+        check(not untraced, f"no import trace in {untraced}")
+        bad_imports = {name: forbidden_imports(text)
+                       for name, text in logs.items()}
+        bad_imports.update({s["cmd"]: s["forbidden"]
+                            for s in seen["shell"]})
+        check(not any(bad_imports.values()),
+              f"spawned processes imported {bad_imports}")
+        threads, children = left_running()
+        check(children == [], f"child processes left running: {children}")
+        print(f"  no daemon or shell imported jax or seaweedfs_tpu "
+              f"({len(logs)} daemon logs, {len(seen['shell'])} shell runs "
+              f"with PYTHONPROFILEIMPORTTIME=1); no child left running")
+        print(f"  the degraded pass reads needles of 500-30,000 B: every "
+              f"recover is under the 1 MiB -ec.smallrecover and runs on the "
+              f"host, not on the card")
+        print(f"  phase 15 wall: {wall:.3f} s {tag}")
+    except BaseException:
+        for name in sorted(os.listdir(SOAK_DIR)):
+            if name.endswith(".log"):
+                with open(os.path.join(SOAK_DIR, name)) as f:
+                    lines = [ln for ln in f.read().splitlines()
+                             if not ln.startswith("import time:")]
+                print(f"  {name} (tail, import trace left out):\n"
+                      + "\n".join(lines[-30:]))
+        raise
+    finally:
+        soak.Procs, soak.verify, soak.BASE_PORT = saved
+    shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    seen.update(bad=bad, wall=wall)
+    return seen
+
+
+def driver_runs() -> list[tuple[str, list[str]]]:
+    """Every scenario of the port's drivers once: each soak scenario (at
+    --quick, which only heal, qos and meta read), chaos and chaos ha at
+    --quick, and the three wire smokes, as (driver, arguments)."""
+    from seaweedfs_tpu_torch.tools import soak
+    return ([("soak", [name, "--quick"]) for name in soak.SCENARIOS]
+            + [("chaos", ["--quick"]), ("chaos", ["ha", "--quick"])]
+            + [(name, []) for name in ("wire_smoke", "recorder_smoke",
+                                       "fabric_smoke")])
+
+
+# the longest one driver run may take (slo's armed phase alone is 300 s)
+DRIVER_TIMEOUT_S = 900
+
+
+def run_drivers(out_dir: str, card: str = "",
+                runs: list | None = None) -> list[dict]:
+    """Run each of `runs` (default driver_runs()) as `python -m
+    seaweedfs_tpu_torch.tools.<driver> <arguments>` in a subprocess of
+    this environment, one after another: nothing is forced, so on the
+    card every volume server runs its default -ecBackend auto, the GPU.
+    Prints one row per run (pass or fail by its exit code, and its wall
+    seconds) beside the card, writes each run's output to out_dir, and
+    returns the rows."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", pl.METHOD_ENV)}
+    rows = []
+    for driver, argv in runs or driver_runs():
+        name = " ".join([driver] + argv)
+        log = os.path.join(out_dir, name.replace(" ", "_") + ".log")
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            try:
+                rc = subprocess.run(
+                    [sys.executable, "-m",
+                     f"seaweedfs_tpu_torch.tools.{driver}", *argv],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                    timeout=DRIVER_TIMEOUT_S).returncode
+            except subprocess.TimeoutExpired:
+                rc = None
+        wall = time.perf_counter() - t0
+        with open(log) as f:
+            tail = [ln for ln in f.read().splitlines()
+                    if ln.strip() and not ln.startswith((" ", "Traceback"))]
+        rows.append({"run": name, "rc": rc, "s": wall,
+                     "last": tail[-1][:160] if tail else ""})
+        print(f"  {name}: {'pass' if rc == 0 else 'FAIL'} (exit {rc}) in "
+              f"{wall:.3f} s; last line {rows[-1]['last']!r} "
+              f"({card or 'no card named'})", flush=True)
+    return rows
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5353,15 +5606,19 @@ def parse_args(argv=None):
                    help="bytes per shard of the mesh path")
     p.add_argument("--store-mib", type=int, default=1024,
                    help="size the store phase fills its volume's .dat to")
-    p.add_argument("--server-mib", type=int, default=1024,
-                   help="size the server phase fills its volume's .dat to")
+    p.add_argument("--server-mib", type=int, default=512,
+                   help="size the server phase fills its volume's .dat to "
+                        "(phases 8, 9 and 11 use that volume, and phase "
+                        "12's tree is about this size; 1024 before phase "
+                        "15 joined the script)")
     p.add_argument("--mxu-extra-mib", type=int, default=64,
                    help="size of the second volume phase 9 writes")
     p.add_argument("--workers-mib", type=int, default=256,
                    help="size of each volume of phase 10's -workers 2")
-    p.add_argument("--gateway-mib", type=int, default=512,
+    p.add_argument("--gateway-mib", type=int, default=256,
                    help="size of phase 13's object tree (phase 12's tree "
-                        "at this size)")
+                        "at this size; 512 before phase 15 joined the "
+                        "script)")
     p.add_argument("--mount-mib", type=int, default=256,
                    help="size of the tree phase 14 writes through the "
                         "FUSE mount (phase 12's tree at this size)")
@@ -5371,6 +5628,23 @@ def parse_args(argv=None):
                         "in turns with K5 in phase 5 (default: commit "
                         f"{K5_PARENT}'s, where git can show them)")
     return p.parse_args(argv)
+
+
+class PhaseClock:
+    """Prints each phase's header, and before it the wall seconds of the
+    phase before (phase(None) closes the last one)."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.perf_counter()
+
+    def phase(self, header: str | None) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            print(f"  {self.name} took {now - self.t0:.1f} s", flush=True)
+        if header is not None:
+            print(header, flush=True)
+            self.name = header[3:].split(":")[0]
+        self.t0 = now
 
 
 def left_running() -> tuple[list[str], list[str]]:
@@ -5398,6 +5672,7 @@ def left_running() -> tuple[list[str], list[str]]:
 
 def main(argv=None) -> int:
     t_script = time.perf_counter()
+    clock = PhaseClock()
     args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5406,7 +5681,7 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda", 0)
 
-    print("== phase 1: device facts")
+    clock.phase("== phase 1: device facts")
     card = smi("name,power.limit")
     print(card)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5456,14 +5731,14 @@ def main(argv=None) -> int:
                   f"{sum(mix.values())} instructions, "
                   f"{dict(mix.most_common(14))}")
 
-    print("== phase 2: kernel vs plain version on the card")
+    clock.phase("== phase 2: kernel vs plain version on the card")
     max_err = phase_kernel_vs_plain(dev, args.seed)
     stacked_err = phase_stacked_vs_plain(dev, args.seed)
     mxu_err = phase_mxu_vs_plain(dev, args.seed)
     crc_err = phase_crc32c_vs_plain(dev, args.seed)
     torch.cuda.empty_cache()
 
-    print("== phase 3: flagship steps at full width")
+    clock.phase("== phase 3: flagship steps at full width")
     gf256_cuda.launches = 0
     flagship = phase_flagship(dev, args.seed, args.flagship_mib * MIB)
     check(flagship["launches"] == 3,
@@ -5473,7 +5748,8 @@ def main(argv=None) -> int:
     del flagship
     torch.cuda.empty_cache()
 
-    print("== phase 4: the volume path (encode, rebuild, decode, verify)")
+    clock.phase("== phase 4: the volume path (encode, rebuild, decode, "
+                "verify)")
     encoder = pl.get_encoder("gpu")
     gf256_cuda.launches = 0
     seen = phase_volume(encoder, dev, args.seed, args.volume_mib * MIB)
@@ -5482,7 +5758,7 @@ def main(argv=None) -> int:
     check(check_volume_counts(seen) == main_launches,
           "launch count mismatch over the volume path")
 
-    print("== phase 5: kernel timing")
+    clock.phase("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
     t4 = time_mxu(dev, args.seed, card, report)
     parent_dir = args.parent_k5 or k5_parent_sources(
@@ -5494,7 +5770,7 @@ def main(argv=None) -> int:
     t5 = time_crc32c(dev, args.seed, card, report, parent=parent_k5,
                      smem=smem)
 
-    print("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
+    clock.phase("== phase 6: the mesh path (parallel/mesh.py), one NCCL rank")
     with pdist.init(device="cuda"):
         gf256_cuda.launches = 0
         gf256_cuda.stacked_launches = 0
@@ -5514,16 +5790,16 @@ def main(argv=None) -> int:
         del mesh["data"]
     torch.cuda.empty_cache()
 
-    print("== phase 7: the store tier (needle volume, EC volume, degraded "
-          "reads, scrub)")
+    clock.phase("== phase 7: the store tier (needle volume, EC volume, "
+                "degraded reads, scrub)")
     store = phase_store(dev, args.seed, args.store_mib * MIB, card)
     store_launches = check_store_counts(store)
     print(f"  launches on the store path: {store_launches}, each step's "
           f"equal to its expected count {store['expected']}")
     time_recover_crossover(card)
 
-    print("== phase 8: the volume server over HTTP (EC generate, degraded "
-          "GETs, rebuild, verify, scrub)")
+    clock.phase("== phase 8: the volume server over HTTP (EC generate, "
+                "degraded GETs, rebuild, verify, scrub)")
     shutil.rmtree(MXU_DIR, ignore_errors=True)
     os.makedirs(MXU_DIR)
     server = phase_server(dev, args.seed, args.server_mib * MIB, card,
@@ -5535,9 +5811,9 @@ def main(argv=None) -> int:
     shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
     link_volume(MXU_DIR, CLUSTER_SRC, SERVER_VID)
 
-    print("== phase 9: the volume server's MXU method over HTTP "
-          "(SWTPU_TORCH_EC_METHOD=mxu: generate_batch, degraded GETs, "
-          "scrub localization through K4)")
+    clock.phase("== phase 9: the volume server's MXU method over HTTP "
+                "(SWTPU_TORCH_EC_METHOD=mxu: generate_batch, degraded GETs, "
+                "scrub localization through K4)")
     mxu = phase_mxu_server(dev, args.seed, args.server_mib * MIB,
                            args.mxu_extra_mib * MIB, server, card)
     mxu_launches, mxu_calls = check_mxu_counts(mxu)
@@ -5546,13 +5822,13 @@ def main(argv=None) -> int:
           f"calls, K1 {mxu_k1} launches, each step's equal to its expected "
           f"count {mxu['expected']}")
 
-    print("== phase 10: volume -workers 2 -ecBackend gpu (two processes, "
-          "each with its own CUDA context, one shared port)")
+    clock.phase("== phase 10: volume -workers 2 -ecBackend gpu (two "
+                "processes, each with its own CUDA context, one shared port)")
     phase_workers(args.seed, args.workers_mib * MIB, card)
 
-    print("== phase 11: the port's own cluster (master, two volume "
-          "servers, shell, autopilot): ec.encode, degraded GETs, "
-          "autopilot repair, ec.verify, ec.rebuild, ec.decode")
+    clock.phase("== phase 11: the port's own cluster (master, two volume "
+                "servers, shell, autopilot): ec.encode, degraded GETs, "
+                "autopilot repair, ec.verify, ec.rebuild, ec.decode")
     cluster = phase_cluster(dev, args.seed, args.server_mib * MIB,
                             CLUSTER_SRC, limit_mb=args.server_mib,
                             card=card, parity_sha=server["parity_sha"])
@@ -5568,10 +5844,10 @@ def main(argv=None) -> int:
           f"to the reckoning from the seed alone; no module of jax or "
           f"seaweedfs_tpu in this process")
 
-    print("== phase 12: the filer tier (filer.copy ingest, listings, GETs "
-          "and Range GETs through the filer, ec.encode of its volume, 4 "
-          "shards lost, filer restart, degraded reads through K1, fs.du, "
-          "fs.meta.notify)")
+    clock.phase("== phase 12: the filer tier (filer.copy ingest, listings, "
+                "GETs and Range GETs through the filer, ec.encode of its "
+                "volume, 4 shards lost, filer restart, degraded reads "
+                "through K1, fs.du, fs.meta.notify)")
     filer = phase_filer(dev, args.seed, args.server_mib * MIB, card=card)
     filer_launches = check_store_counts(filer, "filer path")
     predicted = filer_prediction(args.seed, args.server_mib * MIB)
@@ -5585,9 +5861,10 @@ def main(argv=None) -> int:
           f"the reckoning from the seed alone {predicted}; no module of jax "
           f"or seaweedfs_tpu in this process")
 
-    print("== phase 13: the gateways (server -filer -s3, a signed "
-          "standalone s3, webdav, filer.replicate): writes, ec.encode of "
-          "each collection, 4 shards lost, degraded reads through K1")
+    clock.phase("== phase 13: the gateways (server -filer -s3, a signed "
+                "standalone s3, webdav, filer.replicate): writes, ec.encode "
+                "of each collection, 4 shards lost, degraded reads through "
+                "K1")
     gateway = phase_gateway(dev, args.seed, args.gateway_mib * MIB,
                             card=card)
     gateway_launches = check_store_counts(gateway, "gateway path")
@@ -5602,10 +5879,10 @@ def main(argv=None) -> int:
           f"within the reckoning from the seed alone {predicted}; no module "
           f"of jax or seaweedfs_tpu in this process or its subprocesses")
 
-    print("== phase 14: the FUSE mount (mount/, the /dev/fuse wire binding "
-          "over a socketpair): a tree written and read back through FUSE "
-          "requests, ec.encode of its collection, shards {0,3,7,9} lost, "
-          "degraded READs through K1")
+    clock.phase("== phase 14: the FUSE mount (mount/, the /dev/fuse wire "
+                "binding over a socketpair): a tree written and read back "
+                "through FUSE requests, ec.encode of its collection, shards "
+                "{0,3,7,9} lost, degraded READs through K1")
     mount = phase_mount(dev, args.seed, args.mount_mib * MIB, card=card)
     mount_launches = check_store_counts(mount, "mount path")
     predicted = mount_prediction(args.seed, args.mount_mib * MIB)
@@ -5619,6 +5896,13 @@ def main(argv=None) -> int:
           f"reckoning from the seed alone; no module of jax or "
           f"seaweedfs_tpu in this process")
 
+    clock.phase("== phase 15: the rebuild soak (seaweedfs_tpu_torch/tools/"
+                "soak.py) on subprocess daemons: a master and 4 volume "
+                "servers at -ecBackend auto, ec.encode, a SIGKILLed shard "
+                "holder, ec.rebuild, three verify passes")
+    phase_soak(card)
+
+    clock.phase(None)
     threads, children = left_running()
     check(children == [], f"child processes left running: {children}")
     print(f"  left running at the end: threads {threads}, no child "

@@ -45,9 +45,10 @@ process (chip_smoke.py does). `version` names this package.
 
 `-ecBackend` picks the EC engine through SWTPU_TORCH_EC_BACKEND (not the
 JAX package's SWTPU_EC_BACKEND): `gpu` is the CUDA kernel, `cpu` its
-plain PyTorch version on the host, and `auto` means `gpu`. Without a
-CUDA device `auto` and `gpu` fail at start-up; the server never serves
-EC on the CPU unless `-ecBackend cpu` asks for it. `server` has no
+plain PyTorch version on the host, and `auto` means `gpu`. Without the
+flag, an inherited SWTPU_TORCH_EC_BACKEND picks it, else `auto`. Without
+a CUDA device `auto` and `gpu` fail at start-up; the server never serves
+EC on the CPU unless `-ecBackend cpu` or the variable asks for it. `server` has no
 `-ecBackend`, as in the reference: its volume server runs `auto`, so
 SWTPU_TORCH_EC_BACKEND=cpu is how it serves EC on a host without a card.
 Under `-workers N` the supervisor re-executes this module once per
@@ -268,11 +269,12 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("-tierMmapDir", default="",
                    help="directory for volume.tier.upload -backend "
                         "mmap.default")
-    v.add_argument("-ecBackend", default="auto",
+    v.add_argument("-ecBackend", default=None,
                    choices=("auto", "gpu", "cpu"),
                    help="erasure-coding engine: gpu = the CUDA kernel, "
                         "cpu = its plain PyTorch version on the host, "
-                        "auto = gpu (fails without a CUDA device)")
+                        "auto = gpu (fails without a CUDA device); "
+                        "unset: SWTPU_TORCH_EC_BACKEND, else auto")
     v.add_argument("-publicUrl", default="",
                    help="publicly accessible address advertised to "
                         "clients (host:port)")
@@ -712,16 +714,21 @@ def init_daemon(args) -> None:
                                for a in failpoints.list_armed()))
 
 
-def _check_ec_backend(backend: str) -> None:
+def _check_ec_backend(backend: str | None) -> None:
     """Pin the EC engine for this process and build it once now, so a
     missing CUDA device fails start-up instead of the first EC request.
     The flag is authoritative: an explicit `-ecBackend auto` clears an
-    inherited pin from the parent environment."""
+    inherited pin from the parent environment. Without the flag the
+    inherited SWTPU_TORCH_EC_BACKEND stands, as it does for `server`,
+    so a driver that spawns plain `volume` daemons picks the engine
+    through the environment (auto when it is unset)."""
     from .ec import pipeline as ecpl
+    if backend is None:
+        backend = os.environ.get(ecpl.BACKEND_ENV, "auto")
     os.environ[ecpl.BACKEND_ENV] = backend
     try:
         ecpl.get_encoder(backend)
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         raise SystemExit(f"-ecBackend {backend}: {e}")
 
 

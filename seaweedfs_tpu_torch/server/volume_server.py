@@ -7,13 +7,16 @@ replication), volume_grpc_client_to_master.go:23-177 (heartbeat loop w/
 leader chasing), volume_grpc_erasure_coding.go (EC shard lifecycle RPCs),
 topology/store_replicate.go (replica fan-out).
 
-The port of seaweedfs_tpu/server/volume_server.py, a copy with two
+The port of seaweedfs_tpu/server/volume_server.py, a copy with three
 changes: the EC handlers run the port's EC engine, which
 SWTPU_TORCH_EC_BACKEND picks (the CLI's -ecBackend: gpu, the CUDA
 kernel, or cpu, its plain PyTorch version; SWTPU_TORCH_EC_METHOD=mxu
 sends its batched and recover transforms through the GF(2) bit-matrix
-product); and start() resolves the port's native host library off the
-event loop.
+product); start() resolves the port's native host library off the
+event loop; and a -workers worker sends its first heartbeat only once
+every sibling listens (_await_siblings), where the reference's fleet
+registers with its first worker and fails what it proxies to a sibling
+still starting.
 """
 
 from __future__ import annotations
@@ -67,6 +70,10 @@ def _request_vid(req: "web.Request") -> int | None:
 
 
 class VolumeServer:
+    # the longest a -workers worker holds its first heartbeat for a
+    # sibling that is still starting (_await_siblings)
+    SIBLING_START_S = 30.0
+
     def __init__(self, store: Store, master_url: str,
                  ip: str = "127.0.0.1", port: int = 8080,
                  data_center: str = "", rack: str = "",
@@ -833,7 +840,31 @@ class VolumeServer:
                 self.master_url = leader
             return True
 
+    async def _await_siblings(self) -> None:
+        """Hold a -workers worker's first heartbeat until every sibling
+        listens (a worker writes its state file once its listeners are
+        bound). The master then offers the fleet only when any worker
+        can reach the owner of any vid: a worker that registered alone
+        took allocates and merged /debug reads it had to send to a
+        sibling still starting, and answered them 500 or with itself
+        alone. A sibling that never comes up holds it SIBLING_START_S
+        at most."""
+        wc = self.worker_ctx
+
+        def all_listen() -> bool:
+            # the files themselves, not sibling_addr: its cache would
+            # keep "still starting" for the first requests after
+            return all(os.path.exists(wc.state_path(i))
+                       for i in range(wc.total))
+
+        deadline = time.monotonic() + self.SIBLING_START_S
+        while time.monotonic() < deadline and \
+                not await self._in_executor(all_listen):
+            await asyncio.sleep(0.1)
+
     async def _heartbeat_loop(self) -> None:
+        if self.worker_ctx is not None:
+            await self._await_siblings()
         while True:
             try:
                 await self.heartbeat_once()

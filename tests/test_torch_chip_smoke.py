@@ -856,3 +856,67 @@ def test_mount_reckoning_matches_a_byte_walk(mount_rehearsal):
     assert r["predicted"]["READ degraded"] == sum(
         cs.full_blocks_lost(off, rec, cs.MOUNT_LOST)
         for i, j, off, rec in layout if j >= 0 and i != plan["gone"])
+
+
+def test_soak_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 15 on the CPU: the port's rebuild soak on subprocess daemons
+    (SWTPU_TORCH_EC_BACKEND=cpu, ports moved to a free block), three
+    verify passes with 0 bad reads, the servers of ec.encode and
+    ec.rebuild found alive (their CUDA contexts are checked on the card
+    only), an import trace in every daemon's and shell's log with no
+    module of jax or seaweedfs_tpu, and no child left running."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+    from test_torch_tools import free_port_block
+
+    seen = chip_smoke.phase_soak(on_card=False,
+                                 base_port=free_port_block(5) - 20)
+    assert seen["bad"] == 0
+    assert [v["pass"] for v in seen["verify"]] == \
+        list(chip_smoke.SOAK_PASSES)
+    assert all(v["bad"] == 0 and v["files"] == 900
+               for v in seen["verify"])
+    assert seen["encode"] and seen["rebuild"]
+    assert all(s["context"] is None for step in ("encode", "rebuild")
+               for s in seen[step].values())
+    assert not os.path.exists(chip_smoke.SOAK_DIR)
+    assert chip_smoke.left_running()[1] == []
+
+
+def test_shell_result_reads_the_printed_json(monkeypatch):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    out = ('[\n  {\n    "volume": 3,\n    "node": "127.0.0.1:1"\n  }\n]\n'
+           "I1017 12:00:00 1 some log line\n"
+           "import time: self [us] | cumulative | imported package\n"
+           "import time:        85 |         85 |   _io\n")
+    assert chip_smoke.shell_result(out) == [{"volume": 3,
+                                              "node": "127.0.0.1:1"}]
+    assert chip_smoke.shell_result("import time: x | y | z\n") is None
+    assert chip_smoke.forbidden_imports(
+        out + "import time:        85 |         85 |   jax.numpy\n") \
+        == ["jax.numpy"]
+
+
+def test_run_drivers_rows_and_logs(monkeypatch, tmp_path):
+    """run_drivers runs each driver as `python -m
+    seaweedfs_tpu_torch.tools.<name>` and reports its exit code, wall
+    seconds and last line, with its whole output in out_dir; by default
+    it runs every soak scenario, chaos and chaos ha, and the smokes."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from seaweedfs_tpu_torch.tools import soak
+
+    runs = chip_smoke.driver_runs()
+    assert [a[0] for d, a in runs if d == "soak"] == list(soak.SCENARIOS)
+    assert ("chaos", ["ha", "--quick"]) in runs and len(runs) == 17
+    rows = chip_smoke.run_drivers(
+        str(tmp_path), "a card",
+        runs=[("soak", ["no-such-scenario"]), ("chaos", ["--help"])])
+    assert [(r["run"], r["rc"]) for r in rows] == [
+        ("soak no-such-scenario", 1), ("chaos --help", 0)]
+    assert "choose from: all, ec" in rows[0]["last"]
+    assert sorted(os.listdir(tmp_path)) == [
+        "chaos_--help.log", "soak_no-such-scenario.log"]

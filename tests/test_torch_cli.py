@@ -93,6 +93,31 @@ def test_cli_volume_serves_status_and_ec_generate(tmp_path):
     assert proc.returncode == 0, proc.stderr.read()[-2000:]
 
 
+def test_cli_volume_without_the_flag_takes_the_environment(tmp_path):
+    """With no -ecBackend, an inherited SWTPU_TORCH_EC_BACKEND picks the
+    engine, as it does for `server`: the soak drivers spawn plain
+    `volume` daemons and ask for the CPU through the environment. The
+    default used to pin `auto` over it, so on a host without a card every
+    such daemon exited at start-up. An explicit flag still wins."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    env = dict(_env(), SWTPU_TORCH_EC_BACKEND="cpu")
+    proc = subprocess.Popen(
+        _cli("-dir", str(tmp_path / "v")), cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        assert _read_url(proc)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    pinned = subprocess.run(
+        _cli("-ecBackend", "auto", "-dir", str(tmp_path / "w")), cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert pinned.returncode != 0
+    assert "-ecBackend auto" in pinned.stderr
+    assert "listening on" not in pinned.stdout
+
+
 @pytest.mark.parametrize("backend", ["gpu", "auto"])
 def test_cli_gpu_backend_without_a_card_fails_loudly(tmp_path, backend):
     if torch.cuda.is_available():

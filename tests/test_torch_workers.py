@@ -149,6 +149,73 @@ def test_worker_route_middleware_in_proc(tmp_path):
     run(body())
 
 
+
+def test_worker_registers_only_once_its_siblings_listen(tmp_path,
+                                                        monkeypatch):
+    """A -workers worker holds its first heartbeat until every sibling
+    listens, so the master never offers the fleet while a worker that
+    must take half its vids is still starting (under load the drivers'
+    smokes grew volumes through the first worker and it answered 500
+    for the sibling's). A sibling that never comes up holds it
+    SIBLING_START_S at most."""
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.server.workers import WorkerContext
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    def node_count(c) -> int:
+        return len(list(c.master.topo.all_nodes()))
+
+    async def body():
+        async with Cluster(str(tmp_path), n_servers=0) as c:
+            state_dir = str(tmp_path / "wstate")
+            workers = []
+
+            async def start(i: int) -> VolumeServer:
+                ctx = WorkerContext(i, 2, 0, state_dir, token="tok")
+                store = Store([str(tmp_path / f"w{i}")],
+                              max_volume_counts=[8], partition=(i, 2))
+                vs = VolumeServer(store, c.master.url, port=0,
+                                  pulse_seconds=0.2, worker_ctx=ctx)
+                await vs.start()
+                workers.append(vs)
+                return vs
+
+            try:
+                await start(0)
+                await asyncio.sleep(1.5)
+                # worker 1 not started: worker 0 has not registered
+                assert node_count(c) == 0
+                await start(1)
+                for _ in range(50):
+                    if node_count(c) == 2:
+                        break
+                    await asyncio.sleep(0.1)
+                assert node_count(c) == 2
+            finally:
+                for vs in workers:
+                    await vs.stop()
+
+        # a sibling that never starts holds the first heartbeat only
+        # SIBLING_START_S
+        monkeypatch.setattr(VolumeServer, "SIBLING_START_S", 0.5)
+        async with Cluster(str(tmp_path / "b"), n_servers=0) as c:
+            ctx = WorkerContext(0, 2, 0, str(tmp_path / "bstate"),
+                                token="tok")
+            store = Store([str(tmp_path / "b0")], max_volume_counts=[8],
+                          partition=(0, 2))
+            vs = VolumeServer(store, c.master.url, port=0,
+                              pulse_seconds=0.2, worker_ctx=ctx)
+            await vs.start()
+            try:
+                for _ in range(50):
+                    if node_count(c) == 1:
+                        break
+                    await asyncio.sleep(0.1)
+                assert node_count(c) == 1
+            finally:
+                await vs.stop()
+    run(body())
+
 def test_multipart_write_through_a_sibling_is_parsed(tmp_path):
     """A multipart upload of a needle owned by worker 1, written through
     worker 0, is parsed like one written to the owner: the sibling hop
