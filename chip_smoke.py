@@ -5,7 +5,7 @@
                           [--mesh-volumes N] [--mesh-mib N] [--store-mib N]
                           [--server-mib N] [--mxu-extra-mib N]
                           [--workers-mib N] [--gateway-mib N]
-                          [--mount-mib N]
+                          [--mount-mib N] [--rot-mib N]
                           [--parent-k5 DIR]
 
 Builds the port's CUDA sources from this checkout (the GF(256) kernel,
@@ -189,6 +189,18 @@ then:
    rebuilding server, holds a CUDA context (K1 ran in it); no daemon or
    shell run imported jax or seaweedfs_tpu (PYTHONPROFILEIMPORTTIME=1
    logs); nothing left running;
+16. puts rot in survivors, through the volume server in process
+   (cli.start_volume, -ecBackend gpu, -ec.smallrecover 0 so that every
+   recover runs through K1): a volume of phase 7's needle mix from
+   --seed, reduced to --rot-mib MiB, is generated, one byte of data
+   shard 5 and one of parity 12 are flipped where rot_plan (the
+   reckoning from the seed alone) puts them; (a) with shards {0,3,7}
+   lost every needle is read over GET, sha256-equal, the reads that fail
+   their CRC retried without one survivor at a time and the culprits
+   reported as reckoned; (b) /admin/ec/rebuild of {0,3} from 12 inputs
+   pins both culprits and writes the generated bytes; (c) the rebuild of
+   {0,3,7} from 11 inputs decides by the needle CRCs and writes the
+   generated bytes; each step's K1 launches equal the reckoning;
    then prints one JSON line describing each kernel.
 
 The last line of standard output is
@@ -5540,6 +5552,287 @@ def phase_soak(card: str = "", on_card: bool = True,
     return seen
 
 
+# -- phase 16: rot in a survivor ---------------------------------------------
+
+# phase 16's store directory (git-ignored)
+ROT_DIR = os.path.join(ROOT, ".smoke_rot")
+ROT_VID = 1
+# the shards step (a) loses, leaving 11 survivors; step (b) rebuilds the
+# first two with 12 inputs present, step (c) all three from 11
+ROT_LOST = (0, 3, 7)
+# the survivors whose files get one flipped byte each
+ROT_DATA_SHARD = 5
+ROT_PARITY_SHARD = 12
+# where in the shard files the reckoning looks for a flip position
+ROT_STRIDE = 4099
+
+
+def rot_layout(seed: int, target: int) -> tuple[int, int, list[tuple]]:
+    """(.dat size, shard size, [(nid, record offset, size field, data
+    length)]) of phase 16's volume, written as phase 8 writes its own,
+    reckoned from the seed alone (server_layout)."""
+    dat_size, layout = server_layout(seed, target)
+    lens = [len(spec[2]) for spec in store_needle_specs(seed, target)]
+    shard = sum(buf for _, _, buf, _ in pl._iter_row_batches(
+        dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE, 8 * MIB))
+    return dat_size, shard, [(nid, off, size, n) for (nid, off, size), n
+                             in zip(layout, lens)]
+
+
+def data_owner(layout: list[tuple], dat_off: int) -> int | None:
+    """The needle whose data holds byte `dat_off` of the .dat, or None
+    where that byte is a header, a name, a footer or padding."""
+    import bisect
+    i = bisect.bisect_right([r[1] for r in layout], dat_off) - 1
+    if i < 0:
+        return None
+    nid, off, _, n = layout[i]
+    start = off + st.NEEDLE_HEADER_SIZE + 4
+    return nid if start <= dat_off < start + n else None
+
+
+def shard_byte(sid: int, x: int) -> int:
+    """The .dat offset of byte x of data shard sid, in the small-block
+    area that holds every byte of a volume under 10 GiB."""
+    small = pl.SMALL_BLOCK_SIZE
+    return (x // small) * small * gf.DATA_SHARDS + sid * small + x % small
+
+
+def rot_plan(seed: int, target: int) -> dict:
+    """Phase 16's reckoning, from the seed alone, before the run.
+
+    The flips: one byte of data shard 5 in window n/3 and one of parity
+    12 in window 2n/3 (n the volume's full rows of 1 MiB windows), each
+    at the first
+    position (in ROT_STRIDE steps) where the lost data shards {0,3,7},
+    and shard 5 itself for the first, hold needle data, and no needle is
+    hit by both. The needles hit are the ones whose reads fail their
+    CRC and are retried: each is decoded once more per survivor it read
+    (10 per interval recovered from 10 survivors, 1 per interval read
+    straight from a shard), and reported with the flipped shard. K1's
+    launches: /admin/ec/generate's ceil(W/8); one per lost interval of
+    every needle and the retries in step (a); in each rebuild, ceil(W/8)
+    and one per hypothesis in the two windows that disagree, 12 of them
+    with 12 inputs and 11 with 11."""
+    from seaweedfs_tpu_torch.ec.locate import locate_data
+    dat_size, shard, layout = rot_layout(seed, target)
+    large, small = pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE
+    check(dat_size <= gf.DATA_SHARDS * large,
+          f"phase 16's volume of {dat_size} B is past the small-block area")
+    n_windows = -(-shard // small)
+    full = dat_size // (gf.DATA_SHARDS * small)
+    check(full >= 3, f"phase 16 needs 3 full rows of windows, the volume "
+          f"has {full}")
+
+    def first(w: int, shards: tuple, avoid: set) -> tuple[int, list]:
+        for x in range(w * small + 17, min((w + 1) * small, shard),
+                       ROT_STRIDE):
+            owners = [data_owner(layout, shard_byte(s, x)) for s in shards]
+            if None not in owners and not set(owners) & avoid:
+                return x, owners
+        raise RuntimeError(f"no flip position in window {w} where shards "
+                           f"{shards} all hold needle data")
+
+    x5, own5 = first(full // 3, (ROT_DATA_SHARD,) + ROT_LOST, set())
+    x12, own12 = first(2 * full // 3, ROT_LOST, set(own5))
+    culprit = {**{n: ROT_DATA_SHARD for n in own5},
+               **{n: ROT_PARITY_SHARD for n in own12}}
+    reads = 0
+    for nid, off, size, _ in layout:
+        sids = [iv.to_shard_and_offset(large, small)[0] for iv in locate_data(
+            large, small, gf.DATA_SHARDS * shard, off,
+            st.actual_size(size, st.CURRENT_VERSION))]
+        lost = sum(sid in ROT_LOST for sid in sids)
+        reads += lost
+        if nid in culprit:
+            reads += gf.DATA_SHARDS * lost + len(sids) - lost
+    rebuild = rebuild_launches(shard)
+    found = [(x5 // small, [ROT_DATA_SHARD]),
+             (x12 // small, [ROT_PARITY_SHARD])]
+    return {"flips": {ROT_DATA_SHARD: x5, ROT_PARITY_SHARD: x12},
+            "culprits": culprit, "found": found, "needles": len(layout),
+            "launches": {
+                "generate": math.ceil(n_windows / ecb.DEFAULT_BATCH_WINDOWS),
+                "GETs, 11 survivors": reads,
+                "rebuild, 12 inputs": rebuild + 2 * (
+                    gf.DATA_SHARDS + gf.REBUILD_CHECK_ROWS),
+                "rebuild, 11 inputs": rebuild + 2 * (gf.DATA_SHARDS + 1)}}
+
+
+def phase_rot(dev: torch.device, seed: int, target: int, card: str = "",
+              backend: str = "gpu") -> dict:
+    """Rot in a survivor, through the port's volume server in process
+    (cli.start_volume, -ec.smallrecover 0, so that every recover runs
+    through K1): write phase 7's needle mix from `seed` up to `target`
+    bytes over HTTP, /admin/ec/generate, flip one byte of data shard 5
+    and one of parity shard 12 where rot_plan puts them, then (a) lose
+    shards {0,3,7} and GET every needle (sha256-equal to what was
+    written; the retried reads and their culprits as reckoned), (b) put
+    shard 7 back and /admin/ec/rebuild {0,3} from 12 inputs (sha256-equal
+    to the generated files; both culprits pinned and reported), (c) lose
+    {0,3,7} again and /admin/ec/rebuild them from the 11 inputs (decided
+    by the needle CRCs: sha256-equal, both culprits reported). Returns
+    the launch counts per step beside the reckoning's."""
+    import asyncio
+    shutil.rmtree(ROT_DIR, ignore_errors=True)
+    os.makedirs(ROT_DIR)
+    try:
+        return asyncio.run(_drive_rot(dev, seed, target, card, backend))
+    finally:
+        shutil.rmtree(ROT_DIR, ignore_errors=True)
+
+
+async def _drive_rot(dev: torch.device, seed: int, target: int, card: str,
+                     backend: str) -> dict:
+    import aiohttp
+    from seaweedfs_tpu_torch import cli
+
+    tag = f"[{card}]" if card else ""
+    plan = rot_plan(seed, target)
+    launches, timing = {}, {}
+    vid = ROT_VID
+    base = os.path.join(ROT_DIR, str(vid))
+    keep = os.path.join(ROT_DIR, "lost")
+    os.makedirs(keep)
+
+    async def counted(step: str, coro):
+        gf256_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = await coro
+        sync(dev)
+        timing[step] = time.perf_counter() - t0
+        launches[step] = gf256_cuda.launches
+        return out
+
+    args = server_args(backend, ROT_DIR)
+    args[args.index("-ec.smallrecover") + 1] = "0"
+    vs, rec = await cli.start_volume(cli.build_parser().parse_args(args))
+    http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    url = f"http://{vs.url}"
+
+    async def admin(path: str, want: int = 200, **params) -> dict:
+        async with http.post(url + path, params=params) as r:
+            body = await r.json()
+            check(r.status == want, f"POST {path} {params}: {r.status} "
+                  f"{body}")
+            return body
+
+    def fid(nid: int, cookie: int) -> str:
+        return f"{vid},{nid:x}{cookie:08x}"
+
+    def shard_sha(sids) -> dict:
+        return {s: sha_file(base + pl.to_ext(s)) for s in sids}
+
+    try:
+        await admin("/admin/volume/allocate", volume=str(vid))
+        specs = {}
+        for nid, cookie, data, name, mime in store_needle_specs(seed,
+                                                                target):
+            form = aiohttp.FormData()
+            form.add_field("file", data, filename=name.decode(),
+                           content_type=mime.decode())
+            async with http.post(f"{url}/{fid(nid, cookie)}",
+                                 data=form) as r:
+                check(r.status == 201, f"POST needle {nid}: {r.status}")
+            specs[nid] = (cookie, hashlib.sha256(data).hexdigest())
+        await admin("/admin/volume/readonly", volume=str(vid))
+        check(len(specs) == plan["needles"], f"wrote {len(specs)} needles, "
+              f"the reckoning has {plan['needles']}")
+        await counted("generate", admin("/admin/ec/generate",
+                                        volume=str(vid)))
+        await admin("/admin/ec/mount", volume=str(vid))
+        await admin("/admin/volume/delete", volume=str(vid))
+        generated = shard_sha(range(gf.TOTAL_SHARDS))
+        for sid, x in plan["flips"].items():
+            flip_byte(base + pl.to_ext(sid), x)
+        for sid in ROT_LOST:
+            os.link(base + pl.to_ext(sid), os.path.join(keep, str(sid)))
+        lost = ",".join(map(str, ROT_LOST))
+        await admin("/admin/ec/unmount", volume=str(vid), shards=lost)
+        await admin("/admin/ec/delete_shards", volume=str(vid), shards=lost)
+        store = vs.store
+        store.drop_cached_volume(vid)
+        store.ec_recover_cache.drop_volume(vid)
+        ev = store.ec_volumes[vid]
+        check(ev.small_recover_bytes == 0, "the server's recover threshold "
+              f"is {ev.small_recover_bytes}, not 0")
+        print(f"  {len(specs)} needles, shard files of "
+              f"{os.path.getsize(base + pl.to_ext(1))} B; flipped shard 5 at "
+              f"{plan['flips'][ROT_DATA_SHARD]} and shard 12 at "
+              f"{plan['flips'][ROT_PARITY_SHARD]}; lost {list(ROT_LOST)} "
+              f"{tag}")
+
+        # -- (a): GET every needle from 11 survivors, two of them rotten
+        async def get_all() -> None:
+            for nid, (cookie, digest) in specs.items():
+                async with http.get(f"{url}/{fid(nid, cookie)}") as r:
+                    body = await r.read()
+                    check(r.status == 200 and
+                          hashlib.sha256(body).hexdigest() == digest,
+                          f"GET needle {nid} from 11 survivors: status "
+                          f"{r.status}, {len(body)} bytes")
+        await counted("GETs, 11 survivors", get_all())
+        found = [r for r in vs.scrubber.found_windows()
+                 if r["found_by"] == "read"]
+        got = Counter(r["shards"][0] for r in found)
+        want = Counter(plan["culprits"].values())
+        windows = sorted({(r["window"], r["shards"][0]) for r in found})
+        check(ev.rereads == len(plan["culprits"]) and got == want
+              and windows == [(w, s[0]) for w, s in plan["found"]],
+              f"step (a): {ev.rereads} reads retried with culprits "
+              f"{dict(got)} in (window, shard) {windows}; the reckoning has "
+              f"{len(plan['culprits'])} with {dict(want)} in "
+              f"{plan['found']}")
+        async with http.get(f"{url}/debug/scrub") as r:
+            surfaced = (await r.json())["scrub"]["found_windows"]
+        check(surfaced == found, f"/debug/scrub found_windows lists "
+              f"{surfaced}, the scrubber holds {found}")
+        print(f"  (a) GET of {len(specs)} needles from 11 survivors: all "
+              f"sha256-equal; {ev.rereads} reads retried, culprits "
+              f"{dict(got)} as reckoned, in {timing['GETs, 11 survivors']:.3f}"
+              f" s {tag}")
+
+        # -- (b): shard 7 back, rebuild {0,3} from 12 inputs
+        os.link(os.path.join(keep, "7"), base + pl.to_ext(7))
+        reb = await counted("rebuild, 12 inputs", admin(
+            "/admin/ec/rebuild", volume=str(vid)))
+        pinned = [(w["window"], w["shards"]) for w in reb.get("rot", [])]
+        check(reb["rebuilt"] == [0, 3] and pinned == plan["found"],
+              f"step (b): rebuilt {reb['rebuilt']}, pinned {pinned}; the "
+              f"reckoning has [0, 3] and {plan['found']}")
+        check(shard_sha((0, 3)) == {s: generated[s] for s in (0, 3)},
+              "step (b): rebuilt shards differ from the generated ones")
+        print(f"  (b) /admin/ec/rebuild of [0, 3] from 12 inputs: "
+              f"sha256-equal to the generated files, rot pinned {pinned} "
+              f"(window, shards), in {timing['rebuild, 12 inputs']:.3f} s "
+              f"{tag}")
+
+        # -- (c): lose {0,3,7} again, rebuild them from 11 inputs
+        await admin("/admin/ec/delete_shards", volume=str(vid), shards=lost)
+        reb = await counted("rebuild, 11 inputs", admin(
+            "/admin/ec/rebuild", volume=str(vid)))
+        pinned = [(w["window"], w["shards"]) for w in reb.get("rot", [])]
+        check(reb["rebuilt"] == list(ROT_LOST) and pinned == plan["found"],
+              f"step (c): rebuilt {reb['rebuilt']}, pinned {pinned}; the "
+              f"reckoning has {list(ROT_LOST)} and {plan['found']}")
+        check(shard_sha(ROT_LOST) == {s: generated[s] for s in ROT_LOST},
+              "step (c): rebuilt shards differ from the generated ones")
+        print(f"  (c) /admin/ec/rebuild of {list(ROT_LOST)} from 11 inputs, "
+              f"decided by the needle CRCs: sha256-equal to the generated "
+              f"files, rot pinned {pinned}, in "
+              f"{timing['rebuild, 11 inputs']:.3f} s {tag}")
+        print(f"  rot path kernel launches per step: {launches}, the "
+              f"reckoning from the seed {plan['launches']} {tag}")
+    finally:
+        await http.close()
+        await vs.stop()
+        if rec is not None:
+            rec.cancel()
+    return {"launches": launches, "expected": plan["launches"],
+            "timing": timing, "retried": len(plan["culprits"]),
+            "found": plan["found"]}
+
+
 def driver_runs() -> list[tuple[str, list[str]]]:
     """Every scenario of the port's drivers once: each soak scenario (at
     --quick, which only heal, qos and meta read), chaos and chaos ha at
@@ -5555,6 +5848,29 @@ def driver_runs() -> list[tuple[str, list[str]]]:
 DRIVER_TIMEOUT_S = 900
 
 
+def keep_driver_logs(lines: list[str], dest: str) -> list[str]:
+    """For each directory a failed soak scenario kept (its soak.KEPT line
+    in `lines`), copy the *.log files in it into `dest` and remove it;
+    returns the copied files' paths."""
+    from seaweedfs_tpu_torch.tools import soak
+    copied = []
+    for ln in lines:
+        if not ln.startswith(soak.KEPT):
+            continue
+        kept = ln[len(soak.KEPT):].strip()
+        for root, _dirs, files in os.walk(kept):
+            for f in sorted(files):
+                if f.endswith(".log"):
+                    rel = os.path.relpath(os.path.join(root, f), kept)
+                    to = os.path.join(dest, os.path.basename(kept),
+                                      rel.replace(os.sep, "_"))
+                    os.makedirs(os.path.dirname(to), exist_ok=True)
+                    shutil.copy(os.path.join(root, f), to)
+                    copied.append(to)
+        shutil.rmtree(kept, ignore_errors=True)
+    return copied
+
+
 def run_drivers(out_dir: str, card: str = "",
                 runs: list | None = None) -> list[dict]:
     """Run each of `runs` (default driver_runs()) as `python -m
@@ -5563,7 +5879,10 @@ def run_drivers(out_dir: str, card: str = "",
     card every volume server runs its default -ecBackend auto, the GPU.
     Prints one row per run (pass or fail by its exit code, and its wall
     seconds) beside the card, writes each run's output to out_dir, and
-    returns the rows."""
+    returns the rows. Where a failed soak scenario kept its directory
+    (the soak.KEPT line), its daemons' logs are copied into out_dir
+    and the directory is removed."""
+    from seaweedfs_tpu_torch.tools import soak
     os.makedirs(out_dir, exist_ok=True)
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", pl.METHOD_ENV)}
@@ -5583,10 +5902,15 @@ def run_drivers(out_dir: str, card: str = "",
                 rc = None
         wall = time.perf_counter() - t0
         with open(log) as f:
-            tail = [ln for ln in f.read().splitlines()
-                    if ln.strip() and not ln.startswith((" ", "Traceback"))]
+            lines = f.read().splitlines()
+        kept = keep_driver_logs(lines, os.path.join(
+            out_dir, name.replace(" ", "_") + "_logs"))
+        tail = [ln for ln in lines
+                if ln.strip() and not ln.startswith((" ", "Traceback"))
+                and not ln.startswith(soak.KEPT)]
         rows.append({"run": name, "rc": rc, "s": wall,
-                     "last": tail[-1][:160] if tail else ""})
+                     "last": tail[-1][:160] if tail else "",
+                     "kept_logs": kept})
         print(f"  {name}: {'pass' if rc == 0 else 'FAIL'} (exit {rc}) in "
               f"{wall:.3f} s; last line {rows[-1]['last']!r} "
               f"({card or 'no card named'})", flush=True)
@@ -5622,6 +5946,9 @@ def parse_args(argv=None):
     p.add_argument("--mount-mib", type=int, default=256,
                    help="size of the tree phase 14 writes through the "
                         "FUSE mount (phase 12's tree at this size)")
+    p.add_argument("--rot-mib", type=int, default=128,
+                   help="size of phase 16's volume (reduced from the store "
+                        "phase's 1 GiB so that the phase costs about 20 s)")
     p.add_argument("--parent-k5", default=None,
                    help="a directory holding an earlier commit's "
                         "ops/crc32c_cuda.py and ops/csrc/crc32c.cu, timed "
@@ -5902,6 +6229,19 @@ def main(argv=None) -> int:
                 "holder, ec.rebuild, three verify passes")
     phase_soak(card)
 
+    clock.phase("== phase 16: rot in a survivor (the volume server in "
+                "process, -ec.smallrecover 0): one flipped byte in data "
+                "shard 5 and one in parity 12, degraded GETs from 11 "
+                "survivors, /admin/ec/rebuild from 12 and from 11 inputs, "
+                "all through K1")
+    rot = phase_rot(dev, args.seed, args.rot_mib * MIB, card)
+    rot_launches = check_store_counts(rot, "rot path")
+    bad = forbidden_loaded()
+    check(bad == [], f"this process loaded {bad[:5]}")
+    print(f"  launches on the rot path: {rot_launches}, each step's equal "
+          f"to the reckoning from the seed alone {rot['expected']}; "
+          f"{rot['retried']} reads retried, rot pinned {rot['found']}")
+
     clock.phase(None)
     threads, children = left_running()
     check(children == [], f"child processes left running: {children}")
@@ -5915,7 +6255,7 @@ def main(argv=None) -> int:
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
         "launches": main_launches + store_launches + server_launches
         + mxu_k1 + cluster_launches + filer_launches + gateway_launches
-        + mount_launches,
+        + mount_launches + rot_launches,
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

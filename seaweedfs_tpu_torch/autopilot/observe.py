@@ -9,7 +9,9 @@ and the autopilot now consumes as *inputs*:
 * every live holder's ``/debug/scrub`` — specifically the
   machine-readable per-cycle ``corrupt_windows`` rows (vid, window
   offset, localized shard ids) the scrubber emits since this PR,
-  NOT the human-facing prose/corruption ring;
+  NOT the human-facing prose/corruption ring, and its
+  ``found_windows``: the same rows for rot that a degraded read or a
+  rebuild pinned to one survivor;
 * every live holder's ``/debug/health`` verdict plus the master's own
   — any ``page`` anywhere parks the executor (repair traffic must
   never bury a foreground incident);
@@ -80,7 +82,10 @@ class Observer:
             body = await self._get_json(url, "/debug/scrub")
             for st in self._scrub_statuses(body):
                 last = st.get("last_cycle") or {}
-                for row in last.get("corrupt_windows", ()):
+                # a scrub cycle's localized windows, and the rot that
+                # degraded reads and rebuilds pinned since
+                for row in (list(last.get("corrupt_windows", ()))
+                            + list(st.get("found_windows", ()))):
                     key = (int(row["volume"]), int(row["offset"]))
                     corrupt[key] = CorruptionReport(
                         vid=int(row["volume"]),

@@ -238,6 +238,11 @@ def _plan_ec_volume(ev: EcVolumeState, nodes: list,
     # gather map: for every clean survivor shard, its first holder
     # (sorted — deterministic); the executor ships this to the target
     sources = tuple((sid, held[sid][0]) for sid in survivors)
+    # what the target gathers: k inputs and up to REBUILD_CHECK_ROWS
+    # more that check them (volume_server rebuild_shard), all paid
+    # for against -autopilot.mbps
+    gather_est = min(len(survivors), gf.DATA_SHARDS
+                     + gf.REBUILD_CHECK_ROWS) * shard_bytes_est
     total_repairs = len(missing) + len(rot)
     prio = 0 if total_repairs == 1 else 1
     out: list[Action] = []
@@ -274,7 +279,7 @@ def _plan_ec_volume(ev: EcVolumeState, nodes: list,
                     collection=ev.collection, priority=prio,
                     shards=sids, target=target, targets=fallbacks,
                     sources=sources,
-                    bytes_est=gf.DATA_SHARDS * shard_bytes_est,
+                    bytes_est=gather_est,
                     reason=f"{len(missing)} shard(s) lost, "
                            f"{len(held)}/{gf.TOTAL_SHARDS} hosted"))
 
@@ -296,7 +301,7 @@ def _plan_ec_volume(ev: EcVolumeState, nodes: list,
             kind=KIND_REBUILD, vid=ev.vid, collection=ev.collection,
             priority=prio, shards=sids, target=target,
             targets=(target,), sources=sources,
-            bytes_est=gf.DATA_SHARDS * shard_bytes_est,
+            bytes_est=gather_est,
             reason=f"scrub localized rot to shard(s) {list(sids)}"))
     return out, defer
 

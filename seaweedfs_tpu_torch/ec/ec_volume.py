@@ -27,7 +27,7 @@ import threading
 from typing import Callable
 
 from ..storage import types as t
-from ..storage.needle import Needle
+from ..storage.needle import CrcMismatch, Needle, NeedleError
 from ..storage.needle_map import SortedFileNeedleMap
 from ..util import failpoints, glog
 from . import gf
@@ -44,6 +44,12 @@ class EcVolumeError(Exception):
 
 class NotFoundError(EcVolumeError):
     pass
+
+
+# the stripe window a found-rot report names (the scrubber's default
+# window): a read that pins rot to one shard reports it in the
+# scrubber's structured form, with window = offset // REPORT_WINDOW
+REPORT_WINDOW = 1 << 20
 
 
 class RepairPlan:
@@ -127,7 +133,8 @@ class EcVolume:
                  recover_cache=None,
                  holder_peek=None,
                  refresh_holders=None,
-                 small_recover_bytes: int | None = None):
+                 small_recover_bytes: int | None = None,
+                 report_rot: Callable[[dict], None] | None = None):
         self.dir = dirname
         self.collection = collection
         self.vid = vid
@@ -166,6 +173,13 @@ class EcVolume:
         # per-(missing-set) repair plans; invalidated on shard
         # mount/unmount and holder-map refresh
         self._plans: dict[frozenset, RepairPlan] = {}
+        # fn(report) for a survivor a read pinned as rotten, in the
+        # scrubber's structured form (the Store forwards it to the
+        # volume server's scrubber, where the autopilot observes it)
+        self.report_rot = report_rot
+        # reads whose needle failed its CRC and were decoded again with
+        # one survivor left out at a time (_reread_without_culprit)
+        self.rereads = 0
         base = collection + "_" + str(vid) if collection else str(vid)
         self.base_name = os.path.join(dirname, base)
         self._ecx = SortedFileNeedleMap(self.base_name + ".ecx",
@@ -230,19 +244,28 @@ class EcVolume:
     def _read_shard_interval(self, sid: int, offset: int, size: int) -> bytes:
         """local shard -> remote fetch -> on-the-fly reconstruct
         (readOneEcShardInterval, store_ec.go:178-209)."""
+        return self._read_interval_src(sid, offset, size)[0]
+
+    def _read_interval_src(self, sid: int, offset: int, size: int
+                           ) -> "tuple[bytes, tuple, bool]":
+        """_read_shard_interval, also saying where the bytes came from:
+        (bytes, the shard rows they were read or decoded from, whether
+        they were decoded). A recover served from the recover cache
+        names no rows: those bytes passed a needle CRC before."""
         f = self.shards.get(sid)
         if f is not None:
             failpoints.sync_fail("ec.shard_read")
             # pread: position-independent, safe under concurrent readers
             data = os.pread(f.fileno(), size, offset)
             if len(data) == size:
-                return data
-            return data + b"\x00" * (size - len(data))
+                return data, (sid,), False
+            return data + b"\x00" * (size - len(data)), (sid,), False
         if self.fetch_remote is not None:
             data = self.fetch_remote(sid, offset, size)
             if data is not None:
-                return data
-        return self._recover_interval(sid, offset, size)
+                return data, (sid,), False
+        data, rows = self._recover_interval_src(sid, offset, size)
+        return data, rows, True
 
     # ---- repair planning (minimal-fetch degraded reads) ----
 
@@ -279,6 +302,10 @@ class EcVolume:
         return plan
 
     def _recover_interval(self, want_sid: int, offset: int, size: int) -> bytes:
+        return self._recover_interval_src(want_sid, offset, size)[0]
+
+    def _recover_interval_src(self, want_sid: int, offset: int, size: int
+                              ) -> "tuple[bytes, tuple]":
         """Gather k survivor rows of the same interval and decode
         (recoverOneRemoteEcShardInterval, store_ec.go:319-373) —
         minimal-fetch: the repair plan orders survivors local-first,
@@ -289,7 +316,10 @@ class EcVolume:
         reconstruction cache; remotely fetched SURVIVOR rows are
         cached under the same keyspace, so recovering a second lost
         shard of the same stripe re-uses the bytes already moved
-        instead of re-fetching them."""
+        instead of re-fetching them.
+
+        Returns the bytes and the survivor rows decoded ((), when the
+        recover cache served them)."""
         from ..util import tracing
         rc = self._recover_cache
         key = (self.vid, want_sid, offset, size)
@@ -297,7 +327,7 @@ class EcVolume:
         if rc is not None:
             cached = rc.get(key)
             if cached is not None:
-                return cached
+                return cached, ()
             # generation snapshot BEFORE gathering (EcRecoverCache; a
             # plain LruByteCache in tests has no generations): a
             # re-encode/remount racing this reconstruction bumps it and
@@ -444,7 +474,7 @@ class EcVolume:
                     rc.put(key, data)
                     for sid, b in fetched.items():
                         rc.put((self.vid, sid, offset, size), b)
-            return data
+            return data, tuple(rows)
 
     def read_window_block(self, offset: int, count: int, size: int,
                           strict: bool = False,
@@ -583,7 +613,9 @@ class EcVolume:
 
     def read_needle(self, needle_id: int, cookie: int | None = None) -> Needle:
         """Locate via .ecx, gather stripe intervals, parse + CRC-check
-        (ReadEcShardNeedle, store_ec.go:119-153)."""
+        (ReadEcShardNeedle, store_ec.go:119-153). A CRC mismatch is
+        answered by _reread_without_culprit, which serves the needle
+        only where exactly one survivor left out makes it pass."""
         with self._lock:
             offset, size = self.find_needle(needle_id)
             if size == t.TOMBSTONE_FILE_SIZE:
@@ -591,16 +623,154 @@ class EcVolume:
             record_len = t.actual_size(size, self.version)
             intervals = locate_data(self.large_block, self.small_block,
                                     self.dat_size, offset, record_len)
-            parts = []
+            parts, reads = [], []
             for iv in intervals:
                 sid, soff = iv.to_shard_and_offset(self.large_block,
                                                    self.small_block)
-                parts.append(self._read_shard_interval(sid, soff, iv.size))
-            blob = b"".join(parts)
-        n = Needle.from_bytes(blob, self.version)
+                data, rows, decoded = self._read_interval_src(sid, soff,
+                                                              iv.size)
+                parts.append(data)
+                reads.append((sid, soff, iv.size, rows, decoded))
+        try:
+            n = Needle.from_bytes(b"".join(parts), self.version)
+        except CrcMismatch as e:
+            n = self._reread_without_culprit(needle_id, reads, parts, e)
         if cookie is not None and n.cookie != cookie:
             raise NotFoundError(f"cookie mismatch for {needle_id:x}")
         return n
+
+    def _gather_rows(self, want_sid: int, offset: int, size: int
+                     ) -> "dict[int, bytes]":
+        """Every other shard's row of one interval that can be had: the
+        local ones by pread, the rest through fetch_remote_batch (one
+        request per holder) and then fetch_remote for what the batch
+        did not bring. Never the recover cache."""
+        got: dict[int, bytes] = {}
+        for sid, f in sorted(self.shards.items()):
+            if sid != want_sid:
+                raw = os.pread(f.fileno(), size, offset)
+                got[sid] = raw + b"\x00" * (size - len(raw))
+        cands = [sid for sid in range(gf.TOTAL_SHARDS)
+                 if sid != want_sid and sid not in got]
+        if cands and self.fetch_remote_batch is not None:
+            batch = self.fetch_remote_batch(
+                [(sid, offset, size) for sid in cands]) or {}
+            for sid in cands:
+                if batch.get(sid) is not None:
+                    got[sid] = batch[sid]
+        if self.fetch_remote is not None:
+            for sid in cands:
+                if sid not in got:
+                    data = self.fetch_remote(sid, offset, size)
+                    if data is not None:
+                        got[sid] = data
+        return {sid: b for sid, b in got.items() if len(b) == size}
+
+    def _reread_without_culprit(self, needle_id: int, reads: list,
+                                parts: "list[bytes]",
+                                err: CrcMismatch) -> Needle:
+        """A needle failed its CRC: find the one rotten survivor.
+
+        The failed decodes and the survivor rows fetched for them leave
+        the recover cache first. Then, for each shard c that the read
+        took bytes from (a row read directly, or a source of a decode),
+        every interval that used c is read again without it: a direct
+        row is decoded from k others, a decode takes its other k - 1
+        sources and one survivor it did not use. That needs k + 1
+        survivors of the interval, local or fetched. Where exactly one
+        c makes the needle parse and pass its CRC, those bytes are
+        served, their decodes are cached, and c is reported as rot in
+        the scrubber's structured form, at the shard offsets where the
+        first read's bytes differ from them. Otherwise the read fails with
+        `err`: no bytes that failed the check are served, and no shard
+        that could not be pinned is reported.
+
+        Each retried interval is one more transform of (1, k, size),
+        on the card at or above small_recover_bytes. The intact path
+        and the first decode do none of this."""
+        import time
+
+        from ..util import events, tracing
+        k = gf.DATA_SHARDS
+        rc = self._recover_cache
+        with self._lock, tracing.start("ec", "reread", vid=self.vid,
+                                       needle=needle_id) as sp:
+            self.rereads += 1
+            gen = (rc.generation(self.vid)
+                   if rc is not None and hasattr(rc, "generation") else None)
+            if rc is not None:
+                for _sid, off, size, _rows, decoded in reads:
+                    if decoded:
+                        for sid in range(gf.TOTAL_SHARDS):
+                            rc.delete((self.vid, sid, off, size))
+            rows_of: dict[int, dict[int, bytes]] = {}
+            suspects = sorted({s for r in reads for s in r[3]})
+            passed = []
+            for c in suspects:
+                blob = list(parts)
+                for i, (sid, off, size, rows, decoded) in enumerate(reads):
+                    if c not in rows:
+                        continue
+                    if i not in rows_of:
+                        rows_of[i] = self._gather_rows(sid, off, size)
+                    have = rows_of[i]
+                    keep = [s for s in rows if s != c and s in have] \
+                        if decoded else []
+                    srcs = (keep + [s for s in sorted(have)
+                                    if s != c and s not in rows])[:k]
+                    if len(srcs) < k:
+                        break
+                    coeff = gf.cached_shard_rows((sid,), tuple(sorted(srcs)))
+                    out = _transform_buffers(
+                        self.encoder(size), coeff,
+                        [np.frombuffer(have[s], np.uint8)
+                         for s in sorted(srcs)])
+                    blob[i] = np.asarray(out[0], np.uint8).tobytes()
+                else:
+                    try:
+                        n = Needle.from_bytes(b"".join(blob), self.version)
+                    except (NeedleError, IndexError, ValueError):
+                        continue
+                    if n.id == needle_id:
+                        passed.append((c, n, blob))
+            sp.set("suspects", suspects)
+            sp.set("passed", [c for c, _, _ in passed])
+            if len(passed) != 1:
+                glog.warning("ec reread vid=%d needle=%x: %d of %d "
+                             "survivors left out pass the CRC; failing "
+                             "the read", self.vid, needle_id, len(passed),
+                             len(suspects))
+                raise err
+            c, n, blob = passed[0]
+            if rc is not None:
+                for i, (sid, off, size, _rows, decoded) in enumerate(reads):
+                    if decoded:
+                        if gen is not None:
+                            rc.put_fenced((self.vid, sid, off, size),
+                                          blob[i], gen)
+                        else:
+                            rc.put((self.vid, sid, off, size), blob[i])
+            # where the rot lies: the bytes the first read got wrong
+            diff = [reads[i][1] + int(j) for i in range(len(reads))
+                    if blob[i] is not parts[i]
+                    for j in np.flatnonzero(
+                        np.frombuffer(blob[i], np.uint8)
+                        != np.frombuffer(parts[i], np.uint8))]
+            if not diff:    # the first read's bytes came from elsewhere
+                diff = [off + d for _sid, off, size, rows, _ in reads
+                        if c in rows for d in (0, size - 1)]
+            lo, hi = min(diff), max(diff) + 1
+            report = {"volume": self.vid, "window": lo // REPORT_WINDOW,
+                      "offset": lo, "size": hi - lo, "shards": [c],
+                      "wall": time.time(), "found_by": "read"}
+            glog.error("ec read vid=%d needle=%x: shard %d is rotten at "
+                       "offset %d size %d; served the needle without it",
+                       self.vid, needle_id, c, lo, hi - lo)
+            events.record("ec_rot_found", vid=self.vid, shards=[c],
+                          offset=lo, size=hi - lo, found_by="read")
+            if self.report_rot is not None:
+                self.report_rot(report)
+            return n
 
     def close(self) -> None:
         self._ecx.close()

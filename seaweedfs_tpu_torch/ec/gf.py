@@ -23,6 +23,11 @@ import numpy as np
 DATA_SHARDS = 10
 PARITY_SHARDS = 4
 TOTAL_SHARDS = DATA_SHARDS + PARITY_SHARDS
+# survivors a rebuild reads beyond the k it decodes from: each extra row
+# is derived from the first k and compared with what was read, so one
+# rotten input is found (and, with two extras, pinned) before anything
+# derived from it is written (pipeline.rebuild_ec_files)
+REBUILD_CHECK_ROWS = 2
 
 # GF(2^8) reduction polynomial: x^8+x^4+x^3+x^2+1.
 _POLY = 0x11D

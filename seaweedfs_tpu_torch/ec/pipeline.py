@@ -429,24 +429,172 @@ def present_shards(base_name: str) -> list[int]:
             if os.path.exists(base_name + to_ext(i))]
 
 
+class RebuildRotError(ValueError):
+    """A rebuild input disagreed with the others in some window and no
+    single shard could be pinned as the rotten one: nothing was
+    written."""
+
+
+def _needle_spans(base_name: str, shard_size: int, large_block: int,
+                  small_block: int) -> "list[tuple[int, list]]":
+    """(needle id, [(shard, shard offset, size), ...]) of every live
+    needle in <base>.ecx, located as EcVolume.read_needle locates it;
+    [] without an .ecx."""
+    if not os.path.exists(base_name + ".ecx"):
+        return []
+    with open(base_name + ".ecx", "rb") as f:
+        blob = f.read()
+    dat_size = gf.DATA_SHARDS * shard_size
+    out = []
+    for key, off, size in walk_index_blob(blob):
+        if size <= 0 or size == t.TOMBSTONE_FILE_SIZE:
+            continue
+        ivs = locate_data(large_block, small_block, dat_size, off,
+                          t.actual_size(size, t.CURRENT_VERSION))
+        out.append((key, [iv.to_shard_and_offset(large_block, small_block)
+                          + (iv.size,) for iv in ivs]))
+    return out
+
+
+def _pread(path_or_fd, offset: int, size: int) -> bytes:
+    fd = path_or_fd if isinstance(path_or_fd, int) else None
+    if fd is None:
+        with open(path_or_fd, "rb") as f:
+            return _pread(f.fileno(), offset, size)
+    raw = os.pread(fd, size, offset)
+    return raw + b"\x00" * (size - len(raw))
+
+
+def _overlaps(spans: list, lo: int, hi: int) -> bool:
+    return any(soff < hi and soff + n > lo for _sid, soff, n in spans)
+
+
+def _needles_pass(base_name: str, needles: list, pos: int, size: int,
+                  rows: "dict[int, np.ndarray]", targets: list,
+                  outs: list, unsettled: list) -> "bool | None":
+    """Whether every needle with bytes in data rows [pos, pos + size)
+    parses and passes its CRC when the window's data rows are `rows`;
+    None when no needle there can be checked. A needle's bytes outside
+    the window come from the rebuilt target files (`outs`) or the shard
+    files on disk; one with bytes on neither, or in another window still
+    `unsettled` ((lo, hi) shard offsets whose target bytes are not yet
+    known), is not checked."""
+    from ..storage.needle import Needle, NeedleError
+    seen = False
+    for key, spans in needles:
+        if not _overlaps(spans, pos, pos + size) or any(
+                _overlaps(spans, lo, hi) for lo, hi in unsettled):
+            continue
+        parts = []
+        for sid, soff, n in spans:
+            a, b = max(soff, pos), min(soff + n, pos + size)
+            if a <= soff and soff + n <= b:
+                parts.append(rows[sid][soff - pos:soff + n - pos].tobytes())
+                continue
+            if sid in targets:
+                src = outs[targets.index(sid)].fileno()
+            elif os.path.exists(base_name + to_ext(sid)):
+                src = base_name + to_ext(sid)
+            else:
+                break
+            if a >= b:
+                parts.append(_pread(src, soff, n))
+                continue
+            parts.append(_pread(src, soff, a - soff)
+                         + rows[sid][a - pos:b - pos].tobytes()
+                         + _pread(src, b, soff + n - b))
+        else:
+            seen = True
+            try:
+                got = Needle.from_bytes(b"".join(parts), t.CURRENT_VERSION)
+            except (NeedleError, IndexError, ValueError):
+                return False
+            if got.id != key:
+                return False
+    return True if seen else None
+
+
+def _pin_window(base_name: str, encoder, targets: list, use: list,
+                pos: int, size: int, needles: list, outs: list,
+                unsettled: list, stats: dict | None
+                ) -> "tuple[int, np.ndarray] | None":
+    """The one rotten input of a window whose check rows disagreed, and
+    the target rows regenerated without it; None when not exactly one
+    input can be pinned. Each hypothesis is one launch, counted in
+    `stats` as pin_launches (apart from the pass's launches).
+
+    Hypothesis c decodes the targets and the window's other data rows
+    from the first k of the other inputs, in one launch. With k + 2 or
+    more inputs it also derives the rest of them and must match what
+    was read (as batch.localize_corrupt_rows does over a whole stripe);
+    the needles that cross the window in the data rows must then pass
+    their CRCs where any can be checked. With k + 1 every hypothesis is
+    consistent, and the needle CRCs alone decide."""
+    k = gf.DATA_SHARDS
+    rows = {s: np.frombuffer(_pread(base_name + to_ext(s), pos, size),
+                             np.uint8) for s in use}
+    found = []
+    for c in use:
+        others = [s for s in use if s != c]
+        src, chk = others[:k], others[k:]
+        need = list(targets) + chk
+        need += [d for d in range(k) if d not in src and d not in need]
+        coeff = gf.cached_shard_rows(tuple(need), tuple(src))
+        add_stat(stats, pin_launches=1)
+        out = transform_block_async(
+            encoder, coeff, np.stack([rows[s] for s in src])[None])()[0]
+        if not all(np.array_equal(out[len(targets) + j], rows[s])
+                   for j, s in enumerate(chk)):
+            continue
+        data = {s: rows[s] for s in src if s < k}
+        data.update({d: out[j] for j, d in enumerate(need) if d < k})
+        # the needle CRCs decide where no check row can (k + 1), and
+        # veto a check-row verdict they contradict: two rotten inputs
+        # can agree on a check row and pose as one
+        verdict = _needles_pass(base_name, needles, pos, size, data,
+                                targets, outs, unsettled)
+        if verdict is False or (verdict is None and not chk):
+            continue
+        found.append((c, np.asarray(out[:len(targets)], np.uint8)))
+    return found[0] if len(found) == 1 else None
+
+
 def _rebuild_rows(base_name: str, encoder: TorchEncoder, targets: list[int],
                   use: list[int], buffer_size: int,
                   stats: dict | None,
-                  batch_windows: int = DEFAULT_BATCH_WINDOWS) -> None:
-    """Regenerate the `targets` shard files from the k `use` shards
+                  batch_windows: int = DEFAULT_BATCH_WINDOWS,
+                  large_block: int = LARGE_BLOCK_SIZE,
+                  small_block: int = SMALL_BLOCK_SIZE,
+                  rot_found: "list | None" = None) -> None:
+    """Regenerate the `targets` shard files from the `use` shards
     through the stripe-batch engine: up to `batch_windows` buffer
     windows gather into one (B, k, buf) block read with ONE pread per
     survivor, and ONE kernel launch emits ALL target rows for every
     window in the block (len(targets) x k coefficients) — ceil(W/B)
-    launches per rebuild instead of W."""
-    coeff = gf.cached_shard_rows(tuple(targets), tuple(use))
+    launches per rebuild instead of W.
+
+    Inputs past the first k are check rows: the same launch derives
+    them from the first k ((len(targets) + extras) x k coefficients)
+    and each window compares them with what was read. A window that
+    disagrees is pinned to one rotten input (_pin_window) and
+    regenerated without it, and the culprit is appended to `rot_found`;
+    where none can be pinned, RebuildRotError. With exactly k inputs
+    there is nothing to check against, and the targets are whatever
+    the k inputs give. The targets are written to `.rebuild` files and
+    renamed only once every window is settled, so a refused rebuild
+    writes no shard."""
+    k = gf.DATA_SHARDS
+    src, extras = use[:k], use[k:]
+    coeff = gf.cached_shard_rows(tuple(targets) + tuple(extras), tuple(src))
     shard_size = os.path.getsize(base_name + to_ext(use[0]))
     ins = [open(base_name + to_ext(i), "rb") for i in use]
-    outs = [open(base_name + to_ext(i), "wb") for i in targets]
+    tmp = [base_name + to_ext(i) + ".rebuild" for i in targets]
+    outs = [open(p, "w+b") for p in tmp]
     n_windows = -(-shard_size // buffer_size) if shard_size else 0
     # resident budget: survivor rows in + target rows out per window
     batch_windows = clamp_batch_windows(batch_windows, buffer_size,
                                         len(use) + len(targets))
+    bad: list[int] = []
 
     def batches():
         for wi, count in window_blocks(n_windows, batch_windows):
@@ -463,30 +611,77 @@ def _rebuild_rows(base_name: str, encoder: TorchEncoder, targets: list[int],
                 rows.append(np.frombuffer(raw, np.uint8
                                           ).reshape(count, buffer_size))
             add_stat(stats, preads=len(ins), bytes_read=take * len(ins))
-            yield np.stack(rows, axis=1), take
+            yield (wi, np.stack(rows[:k], axis=1),
+                   np.stack(rows[k:], axis=1) if extras else None, take)
 
     def launch(item):
-        block, take = item
         add_stat(stats, launches=1)
-        return item, transform_block_async(encoder, coeff, block, stats)
+        return item, transform_block_async(encoder, coeff, item[1], stats)
 
     def write_result(item, thunk):
-        block, take = item
-        rebuilt = thunk()       # (B, targets, buf)
+        wi, _, check, take = item
+        rebuilt = thunk()       # (B, targets + extras, buf)
+        if check is not None:
+            for b in range(check.shape[0]):
+                if not np.array_equal(rebuilt[b, len(targets):], check[b]):
+                    bad.append(wi + b)
         for j, o in enumerate(outs):
             out = np.ascontiguousarray(rebuilt[:, j, :]
                                        ).tobytes()[:take]
             add_stat(stats, bytes_rebuilt=len(out))
             o.write(out)
 
+    done = False
     try:
         _run_overlapped(batches(), launch, write_result,
                         overlap=_use_overlap(encoder))
+        if bad:
+            for o in outs:
+                o.flush()
+            needles = _needle_spans(base_name, shard_size, large_block,
+                                    small_block)
+            add_stat(stats, rot_windows=len(bad))
+            # windows in order; one a needle ties to a window not yet
+            # settled gets another pass once that one is
+            pending, found = list(bad), {}
+            while pending:
+                settled = 0
+                for wi in list(pending):
+                    pos = wi * buffer_size
+                    size = min(buffer_size, shard_size - pos)
+                    unsettled = [(w * buffer_size, (w + 1) * buffer_size)
+                                 for w in pending if w != wi]
+                    pinned = _pin_window(base_name, encoder, targets, use,
+                                         pos, size, needles, outs,
+                                         unsettled, stats)
+                    if pinned is None:
+                        continue
+                    c, fixed = pinned
+                    for j, o in enumerate(outs):
+                        os.pwrite(o.fileno(), fixed[j].tobytes()[:size], pos)
+                    found[wi] = {"window": wi, "offset": pos, "size": size,
+                                 "shards": [c], "found_by": "rebuild"}
+                    pending.remove(wi)
+                    settled += 1
+                if pending and not settled:
+                    raise RebuildRotError(
+                        f"rebuild inputs {use} disagree in window "
+                        f"{pending[0]} (shard offset "
+                        f"{pending[0] * buffer_size}) and no single input "
+                        f"can be pinned as the rotten one")
+            if rot_found is not None:
+                rot_found.extend(found[w] for w in sorted(found))
+        done = True
     finally:
         for f in ins:
             f.close()
         for o in outs:
             o.close()
+        for p in tmp:
+            if done:
+                os.replace(p, p[:-len(".rebuild")])
+            elif os.path.exists(p):
+                os.remove(p)
 
 
 def rebuild_ec_files(base_name: str, encoder: TorchEncoder | None = None,
@@ -495,7 +690,10 @@ def rebuild_ec_files(base_name: str, encoder: TorchEncoder | None = None,
                      stats: dict | None = None,
                      batch_windows: int = DEFAULT_BATCH_WINDOWS,
                      targets: "list[int] | None" = None,
-                     use: "list[int] | None" = None) -> list[int]:
+                     use: "list[int] | None" = None,
+                     large_block: int = LARGE_BLOCK_SIZE,
+                     small_block: int = SMALL_BLOCK_SIZE,
+                     rot_found: "list | None" = None) -> list[int]:
     """Regenerate missing shard files from >=10 present ones
     (RebuildEcFiles -> rebuildEcFiles, ec_encoder.go:227-281).
     Returns the rebuilt shard ids.
@@ -510,7 +708,14 @@ def rebuild_ec_files(base_name: str, encoder: TorchEncoder | None = None,
 
     `targets` restricts WHICH absent shards are regenerated; `use`
     restricts WHICH present shards feed the reconstruction. None keeps
-    the rebuild-everything and first-k-on-disk defaults."""
+    the rebuild-everything and all-on-disk defaults. Of the inputs,
+    the first k + gf.REBUILD_CHECK_ROWS are read: k to decode from and
+    the rest to check them (_rebuild_rows), so a rotten input is
+    pinned and left out (and appended to `rot_found`, with the window
+    it was found in) or the rebuild is refused with RebuildRotError. The
+    needle CRCs that decide between inputs where only one check row
+    exists are located with `large_block`/`small_block`. With exactly
+    k inputs nothing is checked."""
     encoder = encoder or get_encoder()
     have = present_shards(base_name)
     missing = [i for i in range(gf.TOTAL_SHARDS) if i not in have]
@@ -533,15 +738,18 @@ def rebuild_ec_files(base_name: str, encoder: TorchEncoder | None = None,
         raise ValueError(
             f"unrepairable: only {len(have)} shards present, "
             f"need {gf.DATA_SHARDS}")
-    use = have[:gf.DATA_SHARDS]
+    use = have[:gf.DATA_SHARDS + gf.REBUILD_CHECK_ROWS]
     t0 = time.perf_counter()
+    blocks = {"large_block": large_block, "small_block": small_block,
+              "rot_found": rot_found}
     if sequential:
         for target in missing:
             _rebuild_rows(base_name, encoder, [target], use,
-                          buffer_size, stats, batch_windows=1)
+                          buffer_size, stats, batch_windows=1, **blocks)
     else:
         _rebuild_rows(base_name, encoder, missing, use,
-                      buffer_size, stats, batch_windows=batch_windows)
+                      buffer_size, stats, batch_windows=batch_windows,
+                      **blocks)
     if stats is not None:
         stats["seconds"] = stats.get("seconds", 0.0) + \
             (time.perf_counter() - t0)

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import threading
 import time
 
 from ..util import events, glog, tracing
@@ -230,6 +231,33 @@ class Scrubber:
             maxlen=self.MAX_REPORTS)
         self.last_cycle: dict | None = None
         self._cycle_lock = asyncio.Lock()
+        # rot that a degraded read or a rebuild pinned to one survivor
+        # (note_found_rot): (monotonic stamp, report) rows, served as
+        # /debug/scrub `found_windows` for as long as a cycle's own
+        # evidence stands (one -scrub.interval), so the autopilot
+        # observes it like a localized scrub window
+        self._found: collections.deque = collections.deque(
+            maxlen=self.MAX_REPORTS)
+        self._found_lock = threading.Lock()
+
+    # ---- rot found outside the scrub ----
+
+    # how long a found report stands when the scrub loop is off
+    FOUND_TTL_S = 300.0
+
+    def note_found_rot(self, report: dict) -> None:
+        """Take a structured rot report from a read or a rebuild (any
+        thread): it joins `reported` and rides `found_windows`."""
+        with self._found_lock:
+            self._found.append((time.monotonic(), dict(report)))
+            self.reported.append(dict(report))
+
+    def found_windows(self) -> "list[dict]":
+        """The found reports younger than one scrub interval."""
+        ttl = self.interval_s if self.interval_s > 0 else self.FOUND_TTL_S
+        now = time.monotonic()
+        with self._found_lock:
+            return [r for t, r in self._found if now - t <= ttl]
 
     # ---- metrics ----
 
@@ -484,5 +512,6 @@ class Scrubber:
             "uptime_s": round(time.monotonic() - self.started_mono, 1),
             "corruptions": list(self.corruptions),
             "reported_windows": list(self.reported),
+            "found_windows": self.found_windows(),
             "last_cycle": self.last_cycle,
         }

@@ -38,7 +38,7 @@ from ..ec import gf
 from ..ec import pipeline as ecpl
 from ..ec.ec_volume import EcVolumeError
 from ..pb import messages as pb
-from ..util import batchframe, failpoints, glog, tracing
+from ..util import batchframe, events, failpoints, glog, tracing
 from ..util.resilience import BreakerRegistry
 from ..storage import types as t
 from ..storage.needle import CrcMismatch, Needle, NeedleError
@@ -171,6 +171,9 @@ class VolumeServer:
         if arb is not None:
             self.scrubber.bucket = arb.adopt(
                 "scrub", self.scrubber.bucket)
+        # rot pinned by a degraded read or a rebuild reaches the
+        # autopilot through the scrubber's /debug/scrub found_windows
+        store.ec_rot_sink = self.scrubber.note_found_rot
         self.app = self._build_app()
         store.fetch_remote_shard = None  # wired after start (needs loop)
 
@@ -1623,7 +1626,6 @@ class VolumeServer:
 
     async def _merged_events(self, req: web.Request,
                              query) -> dict:
-        from ..util import events
         payload = events.events_query(query)
         wc = self.worker_ctx
         if wc is None or self._is_worker_hop(req):
@@ -2286,11 +2288,34 @@ class VolumeServer:
         if base is None:
             return web.json_response({"error": f"ec volume {vid} not found"},
                                      status=404)
+        rot: list = []
         try:
-            rebuilt = await self._in_executor(lambda: ecpl.rebuild_ec_files(base))
+            rebuilt = await self._in_executor(
+                lambda: ecpl.rebuild_ec_files(
+                    base, large_block=self.store.ec_large_block,
+                    small_block=self.store.ec_small_block, rot_found=rot))
         except ValueError as e:
             return web.json_response({"error": str(e)}, status=500)
-        return web.json_response({"rebuilt": rebuilt})
+        finally:
+            self._report_rebuild_rot(vid, rot)
+        # "rot" only where a rebuild pinned one: a clean rebuild answers
+        # the reference's body
+        return web.json_response({"rebuilt": rebuilt, **(
+            {"rot": rot} if rot else {})})
+
+    def _report_rebuild_rot(self, vid: int, rot: list) -> None:
+        """Hand the inputs a rebuild pinned as rotten to the store's
+        found-rot reports (and so to the autopilot), in the scrubber's
+        structured form."""
+        for row in rot:
+            row.update(volume=vid, wall=time.time())
+            glog.error("ec rebuild vid=%d: input shard %s is rotten in "
+                       "window %d (offset %d); rebuilt without it", vid,
+                       row["shards"], row["window"], row["offset"])
+            events.record("ec_rot_found", vid=vid, shards=row["shards"],
+                          offset=row["offset"], size=row["size"],
+                          found_by="rebuild")
+            self.store.report_ec_rot(row)
 
     async def _fetch_shard_file(self, source: str, vid: int,
                                 collection: str, ext: str,
@@ -2330,13 +2355,16 @@ class VolumeServer:
 
         POST ?volume=&collection=&shards=2,5&sources=0:host:port,...
 
-        This node regenerates the requested shards HERE: k clean
-        inputs are gathered from the source holders (currently-MOUNTED
+        This node regenerates the requested shards HERE: k inputs,
+        and up to gf.REBUILD_CHECK_ROWS more where the planner listed
+        them, are gathered from the source holders (currently-MOUNTED
         local survivors are free), a local (rotten) copy of a
         requested shard is set aside only once the inputs are
         confirmed, the requested rows come out of one stripe-batched
-        rebuild over exactly the validated inputs, borrowed inputs are
-        dropped, and the result is mounted + registered. Serialized
+        rebuild over exactly the validated inputs (which checks the
+        first k against the rest, leaves a rotten one out and reports
+        it, or refuses), borrowed inputs are dropped, and the result
+        is mounted + registered. Serialized
         per vid: an executor retry racing a still-running rebuild of
         the same volume queues instead of interleaving file writes."""
         q = req.query
@@ -2411,7 +2439,9 @@ class VolumeServer:
         for sid in sorted(sources):
             if sid in want:
                 continue
-            if len(inputs) >= gf.DATA_SHARDS:
+            # k to decode from, and up to REBUILD_CHECK_ROWS more that
+            # check them (ecpl.rebuild_ec_files)
+            if len(inputs) >= gf.DATA_SHARDS + gf.REBUILD_CHECK_ROWS:
                 break
             if sid in mounted_now \
                     and os.path.exists(base + ecpl.to_ext(sid)):
@@ -2457,11 +2487,15 @@ class VolumeServer:
         # 4. regenerate ONLY the requested rows from ONLY the
         # validated clean inputs (one batched dispatch per window
         # block), 5. return the borrowed inputs' disk space
+        rot: list = []
         try:
             rebuilt = await self._in_executor(
-                lambda: ecpl.rebuild_ec_files(base, targets=want,
-                                              use=inputs))
+                lambda: ecpl.rebuild_ec_files(
+                    base, targets=want, use=inputs,
+                    large_block=self.store.ec_large_block,
+                    small_block=self.store.ec_small_block, rot_found=rot))
         except (ValueError, OSError) as e:
+            self._report_rebuild_rot(vid, rot)
             for sid in aside:       # restore + remount the old copies
                 p = base + ecpl.to_ext(sid)
                 await self._in_executor(os.replace, p + ".rot", p)
@@ -2474,6 +2508,7 @@ class VolumeServer:
                                  "remount: %s", vid, e2)
                 await self._heartbeat_now()
             return web.json_response({"error": str(e)}, status=500)
+        self._report_rebuild_rot(vid, rot)
         for sid in aside:
             await self._in_executor(self._unlink_quiet,
                                     base + ecpl.to_ext(sid) + ".rot")
@@ -2493,7 +2528,8 @@ class VolumeServer:
             return web.json_response({"error": str(e)}, status=409)
         await self._heartbeat_now()
         return web.json_response({"rebuilt": rebuilt, "mounted": shards,
-                                  "fetched_inputs": fetched})
+                                  "fetched_inputs": fetched,
+                                  "inputs": inputs, "rot": rot})
 
     async def h_ec_verify(self, req: web.Request) -> web.Response:
         """Parity scrub of a mounted EC volume (EcVolume.verify_parity):

@@ -185,6 +185,10 @@ class Store:
         # (fn(vid) -> None) — ec_volume._repair_plan / _recover_interval
         self.ec_holder_peek = None
         self.ec_refresh_holders = None
+        # where report_ec_rot sends a survivor that a degraded read or
+        # a rebuild pinned as rotten (the volume server's scrubber,
+        # which the autopilot observes): fn(report) | None
+        self.ec_rot_sink = None
         for d in dirs:
             os.makedirs(d, exist_ok=True)
             self._load_existing(d)
@@ -255,9 +259,16 @@ class Store:
                       recover_cache=self.ec_recover_cache,
                       holder_peek=self._make_holder_peek(vid),
                       refresh_holders=self._make_holder_refresh(vid),
-                      small_recover_bytes=self.ec_small_recover_bytes)
+                      small_recover_bytes=self.ec_small_recover_bytes,
+                      report_rot=self.report_ec_rot)
         self.ec_volumes[vid] = ev
         return ev
+
+    def report_ec_rot(self, report: dict) -> None:
+        """Hand one found-rot report ({"volume", "window", "offset",
+        "size", "shards": [c], ...}) to ec_rot_sink."""
+        if self.ec_rot_sink is not None:
+            self.ec_rot_sink(report)
 
     def _make_holder_peek(self, vid: int):
         def peek():

@@ -893,6 +893,16 @@ async def scenario_cache_churn(tmp: str) -> int:
         procs.kill_all()
 
 
+def pregrow(master: str) -> None:
+    """Grow one more writable volume (replication 000) on `master`, so a
+    fill is spread over two volumes whatever the heartbeats report."""
+    req = urllib.request.Request(
+        f"http://{master}/vol/grow?count=1&replication=000",
+        method="POST")
+    with urllib.request.urlopen(req, timeout=15) as r:
+        r.read()
+
+
 def _http_json(port: int, path: str, method: str = "GET") -> dict:
     import json as _json
     req = urllib.request.Request(
@@ -932,6 +942,11 @@ async def scenario_scrub(tmp: str) -> int:
                     "-scrub.interval", "3600",   # loop alive, cycles
                     "-scrub.pausems", "500")     # driven via ?run=1
         await wait_assign(master)
+        # pre-grow a second volume, as heal does: the fill below can
+        # end before a heartbeat reports volume 1 full, and then the
+        # layout never rolls and ec.encode makes one EC volume where
+        # the scenario plants rot in two
+        await asyncio.to_thread(pregrow, master)
         rng = random.Random(77)
         payloads: dict = {}
         async with WeedClient(master) as c:
@@ -1512,13 +1527,7 @@ async def scenario_heal(tmp: str) -> int:
         # before vid 1 ever reports size >= limit, so the layout never
         # rolls), and the scenario NEEDS >= 2 EC volumes to plant rot
         # in — offer two up front and let pick_for_write spread data
-        def pregrow() -> None:
-            req = urllib.request.Request(
-                f"http://{master}/vol/grow?count=1&replication=000",
-                method="POST")
-            with urllib.request.urlopen(req, timeout=15) as r:
-                r.read()
-        await asyncio.to_thread(pregrow)
+        await asyncio.to_thread(pregrow, master)
 
         rng = random.Random(2026)
         payloads: dict = {}
@@ -1590,12 +1599,6 @@ async def scenario_heal(tmp: str) -> int:
 
             # let scrub find the rot and the autopilot start repairing,
             # then SIGKILL one shard-holding volume server mid-soak
-            await asyncio.sleep(10)
-            victim = procs.procs[2]        # volume server index 1
-            victim.send_signal(signal.SIGKILL)
-            victim_port = port0 + 2
-            print(f"  SIGKILLed volume server :{victim_port} mid-soak")
-
             def shard_map() -> dict:
                 body = _http_json(port0, "/vol/volumes")
                 out: dict = {}
@@ -1607,6 +1610,22 @@ async def scenario_heal(tmp: str) -> int:
                                 e.setdefault(sid, []).append(
                                     node["url"])
                 return out
+
+            await asyncio.sleep(10)
+            victim = procs.procs[2]        # volume server index 1
+            victim_port = port0 + 2
+            before = await asyncio.to_thread(shard_map)
+            victim.send_signal(signal.SIGKILL)
+            # what the kill leaves: a rotten survivor among exactly k
+            # has nothing to be checked against
+            left = {vid: sorted(sid for sid, us in before.get(vid, {}).items()
+                                if any(f":{victim_port}" not in u
+                                       for u in us))
+                    for vid in vids}
+            print(f"  SIGKILLed volume server :{victim_port} mid-soak; "
+                  f"survivors per volume "
+                  f"{ {v: len(s) for v, s in left.items()} }, shard 12 "
+                  f"rotten in {rotten}")
 
             # convergence: every EC volume back to 14 hosted shards on
             # LIVE nodes, with zero operator intervention
@@ -2121,6 +2140,11 @@ SCENARIOS = {
 }
 
 
+# the line main() prints, before the directory's path, when it keeps a
+# failed scenario's directory (its data and the daemons' proc*.log)
+KEPT = "soak: kept the failed scenario's directory "
+
+
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which != "all" and which not in SCENARIOS:
@@ -2131,10 +2155,17 @@ def main() -> None:
     for name in names:
         print(f"== soak: {name}")
         tmp = tempfile.mkdtemp(prefix=f"swtpu_soak_{name}_")
+        bad = None
         try:
-            total_bad += asyncio.run(SCENARIOS[name](tmp))
+            bad = asyncio.run(SCENARIOS[name](tmp))
+            total_bad += bad
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if bad == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
+            else:
+                # a failed (or raising) scenario keeps its daemons'
+                # logs for whoever has to explain it
+                print(KEPT + tmp, flush=True)
     print("PASS" if total_bad == 0 else f"FAIL ({total_bad} bad reads)")
     sys.exit(0 if total_bad == 0 else 1)
 

@@ -47,6 +47,8 @@ TYPES = frozenset({
     "retry_budget_exhausted",   # RetryPolicy denied a retry: budget empty
     "holder_refresh",           # EC holder map invalidated + forced re-lookup
     "scrub_corruption",         # parity scrubber found a corrupt window
+    "ec_rot_found",             # a degraded read or a rebuild pinned rot
+                                # to one survivor and left it out
     "volume_mount",             # store mounted/loaded a volume
     "volume_unmount",
     "volume_vacuum",            # compaction committed (offsets moved)

@@ -920,3 +920,95 @@ def test_run_drivers_rows_and_logs(monkeypatch, tmp_path):
     assert "choose from: all, ec" in rows[0]["last"]
     assert sorted(os.listdir(tmp_path)) == [
         "chaos_--help.log", "soak_no-such-scenario.log"]
+
+
+def test_rot_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 16 on a 36 MiB volume on the CPU (-ecBackend cpu, -ec.
+    smallrecover 0, larger needles of 1-3 MiB): with shards {0,3,7} lost
+    and one byte of shards 5 and 12 flipped, every GET is sha256-equal
+    and the retried reads and their culprits are the reckoning's; the
+    rebuilds from 12 and from 11 inputs pin both culprits and write the
+    generated bytes. A CPU call of the kernel's wrapper counts nothing,
+    so this test counts the encoder's calls of it in the wrapper's
+    counter: each step's count equals rot_plan's reckoning from the seed
+    alone, as on the card."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    import chip_smoke
+    from seaweedfs_tpu_torch.ec import encoder_torch
+    from seaweedfs_tpu_torch.ops import gf256_cuda
+
+    mib = chip_smoke.MIB
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE", (mib, 3 * mib))
+    # the wrapper itself, not encoder_torch's name for it: the module's
+    # mount_rehearsal fixture may hold a counting wrapper there already
+    transform = gf256_cuda.gf256_transform
+
+    def counting(consts, x):
+        out = transform(consts, x)
+        gf256_cuda.count_launch()
+        return out
+
+    monkeypatch.setattr(encoder_torch, "gf256_transform", counting)
+    plan = chip_smoke.rot_plan(5, 36 * mib)
+    seen = chip_smoke.phase_rot(torch.device("cpu"), 5, 36 * mib,
+                                backend="cpu")
+    assert seen["expected"] == plan["launches"]
+    assert chip_smoke.check_store_counts(seen, "rot path") \
+        == sum(plan["launches"].values())
+    assert seen["retried"] == len(plan["culprits"]) > 0
+    assert set(plan["culprits"].values()) == {5, 12}
+    assert plan["found"] == [(1, [5]), (2, [12])]
+    assert not os.path.exists(chip_smoke.ROT_DIR)
+
+
+def test_rot_reckoning_places_flips_in_needle_data(monkeypatch, tmp_path):
+    """rot_plan's flip positions, from the seed alone, lie in needle data
+    on every shard it names: a byte walk of the .dat phase 8's writer
+    makes (walk_dat) finds the same needle at each position."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    mib = chip_smoke.MIB
+    monkeypatch.setattr(chip_smoke, "LARGE_NEEDLE", (mib, 3 * mib))
+    plan = chip_smoke.rot_plan(5, 36 * mib)
+    _, shard, layout = chip_smoke.rot_layout(5, 36 * mib)
+    x5 = plan["flips"][chip_smoke.ROT_DATA_SHARD]
+    x12 = plan["flips"][chip_smoke.ROT_PARITY_SHARD]
+    assert x5 // mib == 1 and x12 // mib == 2 and shard == 4 * mib
+    small = chip_smoke.pl.SMALL_BLOCK_SIZE
+    for sid, x in [(5, x5)] + [(s, x) for s in chip_smoke.ROT_LOST
+                               for x in (x5, x12)]:
+        d = (x // small) * 10 * small + sid * small + x % small
+        assert chip_smoke.shard_byte(sid, x) == d
+        nid = chip_smoke.data_owner(layout, d)
+        assert nid is not None
+        rec = next(r for r in layout if r[0] == nid)
+        assert rec[1] + 20 <= d < rec[1] + 20 + rec[3]
+        assert chip_smoke.data_owner(layout, rec[1] + 19) is None
+    assert len(plan["culprits"]) >= 2
+
+
+def test_run_drivers_keeps_a_failed_soaks_logs(monkeypatch, tmp_path):
+    """keep_driver_logs copies the *.log files of each directory a
+    failed soak scenario kept (its soak.KEPT line) into the drivers'
+    out_dir and removes the directory."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from seaweedfs_tpu_torch.tools import soak
+
+    kept = tmp_path / "swtpu_soak_scrub_x"
+    (kept / "v").mkdir(parents=True)
+    (kept / "proc0.log").write_text("master log\n")
+    (kept / "proc1.log").write_text("never became assignable\n")
+    (kept / "v" / "1.dat").write_bytes(b"x" * 10)
+    dest = tmp_path / "out" / "soak_scrub_--quick_logs"
+    copied = chip_smoke.keep_driver_logs(
+        ["== soak: scrub", soak.KEPT + str(kept), "FAIL (1 bad reads)"],
+        str(dest))
+    assert sorted(os.path.basename(p) for p in copied) == [
+        "proc0.log", "proc1.log"]
+    assert (dest / kept.name / "proc1.log").read_text() == \
+        "never became assignable\n"
+    assert not kept.exists()
+    assert chip_smoke.keep_driver_logs(["PASS"], str(dest)) == []

@@ -346,3 +346,27 @@ def test_source_imports_no_jax_and_no_reference_package(path):
             names.append(node.module or "")
     bad = [n for n in names if _forbidden(n)]
     assert bad == [], f"{path} imports {bad}"
+
+
+def test_weedsched_quick_loads_no_jax_no_reference_and_no_tools():
+    """`python -m seaweedfs_tpu_torch.tools.weedsched --quick --json`
+    exits 0 with the explorer's report, and its process imports no jax,
+    nothing of seaweedfs_tpu and nothing of the repo's tools/ package,
+    even though the reference's loop and explorer import no package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "seaweedfs_tpu_torch.tools.weedsched", "--quick", "--json"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    report = json.loads(proc.stdout)
+    assert report["ok"] and report["mode"] == "quick"
+    assert {r["name"] for r in report["scenarios"]} >= {
+        "raft-sequencer", "shard-replay", "chunk-cache", "frame-channel",
+        "singleflight", "autopilot", "pending-leak", "gen-fence"}
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert "seaweedfs_tpu_torch.master.election" in imported
+    assert [m for m in imported
+            if _forbidden(m) or m.split(".")[0] == "tools"] == []

@@ -277,3 +277,93 @@ def test_rebuild_scenario_runs_against_the_port(monkeypatch, tmp_path):
     assert _children() == []
     logs = sorted(p for p in os.listdir(tmp_path) if p.endswith(".log"))
     assert logs == [f"proc{i}.log" for i in range(5)]
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_scrub_scenario_pregrows_its_second_volume(monkeypatch, tmp_path):
+    """scenario_scrub grows a second writable volume once its cluster is
+    assignable and before its fill, as scenario_heal does: the fill can
+    end before a heartbeat reports volume 1 full, and the scenario needs
+    two EC volumes to plant rot in. (The reference keeps the race.)"""
+    steps = []
+
+    class FakeProcs(soak.Procs):
+        async def spawn(self, *args):
+            steps.append(("spawn", args[0]))
+
+        def kill_all(self):
+            steps.append(("kill",))
+
+    async def assignable(master, *a, **kw):
+        steps.append(("assignable", master))
+
+    def grow(master):
+        steps.append(("pregrow", master))
+        raise _Stop
+
+    async def no_sleep(s):
+        return None
+
+    monkeypatch.setattr(soak, "Procs", FakeProcs)
+    monkeypatch.setattr(soak, "wait_assign", assignable)
+    monkeypatch.setattr(soak, "pregrow", grow)
+    monkeypatch.setattr(soak.asyncio, "sleep", no_sleep)
+    with pytest.raises(_Stop):
+        asyncio.run(soak.scenario_scrub(str(tmp_path)))
+    master = f"127.0.0.1:{soak.BASE_PORT + 80}"
+    assert steps == [("spawn", "master"), ("spawn", "volume"),
+                     ("assignable", master), ("pregrow", master),
+                     ("kill",)]
+
+
+def test_pregrow_grows_a_writable_volume_on_the_port_master(tmp_path):
+    """soak.pregrow against a port master with one volume server: one
+    more volume of replication 000 is allocated."""
+    from test_torch_cluster_util import Cluster
+
+    async def go():
+        async with Cluster(str(tmp_path), n_servers=1) as c:
+            before = len(c.servers[0].store.volumes)
+            await asyncio.to_thread(soak.pregrow, c.master.url)
+            assert len(c.servers[0].store.volumes) == before + 1
+    asyncio.run(go())
+
+
+def test_a_failed_scenario_keeps_its_directory(monkeypatch, capsys):
+    """soak.main removes a passing scenario's directory and keeps a
+    failing or raising one's, printing soak.KEPT and its path, so the
+    daemons' proc*.log can explain the failure."""
+    made = {}
+
+    def scenario(bad):
+        async def run(tmp):
+            with open(os.path.join(tmp, "proc0.log"), "w") as f:
+                f.write("daemon log\n")
+            made.setdefault(bad, []).append(tmp)
+            if bad == "raise":
+                raise RuntimeError("cluster never became assignable")
+            return bad
+        return run
+
+    for name, bad in (("good", 0), ("bad", 2), ("boom", "raise")):
+        monkeypatch.setitem(soak.SCENARIOS, name, scenario(bad))
+        monkeypatch.setattr(sys, "argv", ["soak", name])
+        if bad == "raise":
+            with pytest.raises(RuntimeError):
+                soak.main()
+        else:
+            with pytest.raises(SystemExit) as e:
+                soak.main()
+            assert e.value.code == (0 if bad == 0 else 1)
+    out = capsys.readouterr().out
+    assert not os.path.exists(made[0][0])
+    for bad in (2, "raise"):
+        kept = made[bad][0]
+        assert soak.KEPT + kept in out.splitlines()
+        with open(os.path.join(kept, "proc0.log")) as f:
+            assert f.read() == "daemon log\n"
+        import shutil
+        shutil.rmtree(kept)
