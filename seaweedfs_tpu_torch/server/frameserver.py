@@ -35,9 +35,14 @@ middleware), so an external pipelining client never pays an HTTP
 downgrade just because SO_REUSEPORT handed it the wrong worker.
 
 A copy of seaweedfs_tpu/server/frameserver.py in the PyTorch port, with
-one fix: a multipart write that a sibling worker forwards over its frame
-hop falls back to the HTTP hop, where it is parsed (the reference's copy
-stores the raw multipart body as the needle).
+three changes: a multipart write that a sibling worker forwards over
+its frame hop falls back to the HTTP hop, where it is parsed (the
+reference's copy stores the raw multipart body as the needle); the
+forward of a frame client's request to the owning sibling goes through
+the HTTP routing middleware's breaker and `worker.proxy` chaos site, in
+a span of its own (the reference's skips all three); and HELLO_OK names
+the fleet's size beside the worker, so a client can spread its channels
+over the workers (util/frame.py FrameHub.pick).
 """
 
 from __future__ import annotations
@@ -173,7 +178,8 @@ class FrameServerProtocol(asyncio.Protocol):
             self._hello = True
             self.transport.write(encode_frame(
                 HELLO_OK, fr.req_id,
-                {"v": 1, "worker": wc.index if wc else 0}))
+                {"v": 1, "worker": wc.index if wc else 0,
+                 "workers": wc.total if wc else 1}))
             return
         if fr.type != REQ:
             return                    # unknown/late types ignored
@@ -401,15 +407,38 @@ class FrameServerProtocol(asyncio.Protocol):
 
     async def _forward_sibling(self, owner: int, method: str, path: str,
                                query: dict, headers: dict, body: bytes):
+        """The frame twin of the aiohttp worker-routing middleware's
+        hop, in a `proxy sibling` span of its own and through the same
+        gate (VolumeServer.sibling_gate): the sibling's breaker and the
+        `worker.proxy` chaos site. Without a channel to the sibling the
+        answer is FLAG_FALLBACK before the gate, so the client's HTTP
+        leg crosses it once, in the middleware. A channel that fails
+        mid-request counts against the breaker, as the HTTP hop's 502
+        does (a half-open probe must have its answer), and falls back
+        the same way."""
         vs = self.vs
+        target = vs.worker_ctx.sibling_addr(owner)
         ch = vs.sibling_frame_channel(owner)
-        if ch is None:
+        if ch is None or target is None:
             return None
-        try:
-            status, hdrs, payload = await ch.request(
-                method, path, query=query, headers=headers, body=body)
-        except FrameChannelError:
-            return None
+        with tracing.start_root("proxy", "sibling", headers=headers,
+                                target=target, worker=owner) as sp:
+            sp.set("transport", "frame")
+            br, refused = await vs.sibling_gate(
+                target, f"worker {owner} (sibling)", sp)
+            if refused is not None:
+                return wire.json_err(*refused)
+            fwd = dict(headers)
+            tracing.inject(fwd, sp)
+            try:
+                status, hdrs, payload = await ch.request(
+                    method, path, query=query, headers=fwd, body=body)
+            except FrameChannelError as e:
+                br.record_failure()
+                sp.event("frame_fallback", error=str(e)[:120])
+                return None
+            br.record_success()
+            sp.status = "ok" if status < 400 else str(status)
         ct = hdrs.pop("content-type",
                       hdrs.pop("Content-Type", wire.OCTET))
         return wire.WireResponse(status=status, headers=hdrs,

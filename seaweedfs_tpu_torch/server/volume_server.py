@@ -266,13 +266,6 @@ class VolumeServer:
             return web.json_response(
                 {"error": f"worker {wc.owner_index(vid)} (owner of "
                           f"volume {vid}) unavailable"}, status=503)
-        br = self._sibling_breakers.get(target)
-        if not br.allow():
-            sp = tracing.current()
-            sp.event("breaker_open", upstream=target)
-            return web.json_response(
-                {"error": f"worker {wc.owner_index(vid)} (owner of "
-                          f"volume {vid}) circuit open"}, status=503)
         # the cross-worker hop is its own span, and proxy_request stamps
         # its traceparent on the forwarded request so the sibling's
         # server span nests under it — one trace across both workers.
@@ -281,19 +274,12 @@ class VolumeServer:
         # is also where streaming/oversized bodies always go.
         with tracing.start("proxy", "sibling", target=target,
                            worker=wc.owner_index(vid)) as sp:
-            # the sibling-hop chaos site fires for BOTH transports —
-            # an armed worker.proxy fault must keep tripping this
-            # breaker exactly as it did when the hop was HTTP-only
-            # (tools/soak.py slo depends on it), so it runs before
-            # the frame attempt and takes the same 502 path
-            try:
-                await failpoints.fail("worker.proxy")
-            except OSError as e:
-                br.record_failure()
-                sp.status = "502"
-                return web.json_response(
-                    {"error": f"worker proxy to {target}: {e}"},
-                    status=502)
+            br, refused = await self.sibling_gate(
+                target, f"worker {wc.owner_index(vid)} (owner of "
+                        f"volume {vid})", sp)
+            if refused is not None:
+                return web.json_response({"error": refused[1]},
+                                         status=refused[0])
             from ..util.frame import FrameChannelError
             ch = self.sibling_frame_channel(wc.owner_index(vid))
             if ch is not None and wk.frame_eligible(req):
@@ -320,6 +306,29 @@ class VolumeServer:
                 br.record_success()
                 sp.status = "ok" if resp.status < 400 else str(resp.status)
             return resp
+
+    async def sibling_gate(self, target: str, who: str, sp):
+        """The sibling hop's admission, one policy for both ways in: the
+        routing middleware above and the frame server's forward
+        (server/frameserver.py), so each request crosses it once. The
+        sibling's breaker refuses while open (503, a `breaker_open`
+        event on ``sp``); the `worker.proxy` chaos site fails the hop
+        (502, counted against the breaker), exactly as a crashed
+        sibling does, whichever transport the hop then takes
+        (tools/soak.py slo depends on it). Returns the breaker and,
+        for a refused hop, (status, error)."""
+        br = self._sibling_breakers.get(target)
+        if not br.allow():
+            sp.event("breaker_open", upstream=target)
+            sp.status = "503"
+            return br, (503, f"{who} circuit open")
+        try:
+            await failpoints.fail("worker.proxy")
+        except OSError as e:
+            br.record_failure()
+            sp.status = "502"
+            return br, (502, f"worker proxy to {target}: {e}")
+        return br, None
 
     def _build_app(self) -> web.Application:
         from ..security.guard import middleware as guard_mw

@@ -11,7 +11,9 @@ with mid-flight replica failover — a volume server dying mid-body
 rotates to the next location and resumes via a Range request instead
 of failing the read.
 
-A copy of seaweedfs_tpu/util/client.py in the PyTorch port.
+A copy of seaweedfs_tpu/util/client.py in the PyTorch port, with one
+change: a whole-needle read's frame leg takes FrameHub.pick's channel,
+spread over the workers of a `-workers` fleet.
 """
 
 from __future__ import annotations
@@ -617,7 +619,7 @@ class WeedClient:
                         try:
                             # chaos site: worker.frame severs this leg
                             await failpoints.fail("worker.frame")
-                            chan = self.frame_hub.get(target=upstream)
+                            chan = self.frame_hub.pick(upstream)
                             status, _, fbody = await chan.request(
                                 "GET", f"/{fid}", headers=headers,
                                 timeout=30.0)

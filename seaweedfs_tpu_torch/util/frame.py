@@ -32,7 +32,9 @@ pipelining client keeps the socket full instead of paying a round
 trip per needle. The in-flight window is congestion-aware: an AIMD
 controller fed by per-request round-trip times shrinks it when RTTs
 rise above the channel's observed floor (queue building at the peer)
-and grows it additively as responses drain.
+and grows it additively as responses drain; the floor expires when the
+requests written with none of the channel's others in flight show the
+peer's service time stepping up.
 
 Server side terminates frames in server/frameserver.py — a thin
 adapter over server/wire.py exactly like the two HTTP listeners, so
@@ -47,7 +49,10 @@ CircuitBreaker: repeated channel failures open the breaker so callers
 fail fast to HTTP, and the half-open probe re-tries frames instead of
 downgrading forever.
 
-A copy of seaweedfs_tpu/util/frame.py in the PyTorch port.
+A copy of seaweedfs_tpu/util/frame.py in the PyTorch port, with two
+changes: the RTT floor expires when the peer's service time steps up
+(the reference's lasts the connection's life), and FrameHub.pick spreads
+a client over the workers of a `-workers` fleet.
 """
 
 from __future__ import annotations
@@ -185,7 +190,8 @@ class ChannelStats:
 
     __slots__ = ("requests", "responses", "overhead_out", "overhead_in",
                  "payload_out", "payload_in", "connects", "writes",
-                 "reads", "fallbacks", "window_shrinks", "window_grows")
+                 "reads", "fallbacks", "window_shrinks", "window_grows",
+                 "service_steps")
 
     def __init__(self) -> None:
         self.requests = 0
@@ -200,6 +206,7 @@ class ChannelStats:
         self.fallbacks = 0
         self.window_shrinks = 0        # AIMD multiplicative decreases
         self.window_grows = 0          # AIMD additive increases
+        self.service_steps = 0         # floor expired: service stepped
 
     def to_dict(self) -> dict:
         return {k: getattr(self, k) for k in self.__slots__}
@@ -223,9 +230,16 @@ class FrameChannel:
     The in-flight window is congestion-aware (AIMD): every completed
     request feeds its round-trip time to :meth:`_observe_rtt`; RTTs
     rising past twice the channel's observed floor shrink the window
-    multiplicatively, drained responses grow it additively. Callers
+    multiplicatively, drained responses grow it additively. Requests
+    written with none of the channel's others in flight measure the
+    peer's service time, so a step up in that moves the floor instead
+    of pinning the window at one request. Callers
     that pipeline harder than the window simply queue on the channel,
-    bounded by the request timeout."""
+    bounded by the request timeout.
+
+    ``worker`` pins the channel to one worker of a ``-workers`` fleet
+    (FrameHub.pick): SO_REUSEPORT hands each connection to any worker,
+    and the handshake names the one it reached."""
 
     CWND_INIT = 8.0
     CWND_MIN = 1
@@ -235,7 +249,8 @@ class FrameChannel:
                  token: str = "", connect_timeout: float = 5.0,
                  request_timeout: float = 30.0, idle_s: float = 60.0,
                  ssl=None, jwt_key: str = "", hop: str = "",
-                 breaker: CircuitBreaker | None = None):
+                 breaker: CircuitBreaker | None = None,
+                 worker: int | None = None):
         if not target and not uds_path:
             raise ValueError("FrameChannel needs a tcp target or a "
                              "unix socket path")
@@ -246,6 +261,9 @@ class FrameChannel:
         # sibling = intra-host worker hop, interhost = cluster fabric
         self.hop = hop or ("sibling" if uds_path else "interhost")
         self.breaker = breaker
+        self.worker = worker            # fleet worker to reach, or any
+        self.peer_worker: int | None = None   # from the last handshake
+        self.peer_workers = 1                 # the peer fleet's size
         self.connect_timeout = connect_timeout
         self.request_timeout = request_timeout
         self.idle_s = idle_s
@@ -261,6 +279,10 @@ class FrameChannel:
         self._closed = False
         self._cwnd = float(self.CWND_INIT)
         self._rtt_best = float("inf")   # per-connection RTT floor
+        # the latest RTTs of requests written with nothing of ours
+        # pending: the window over which the floor may expire
+        self._lone: collections.deque[float] = collections.deque(
+            maxlen=int(self.CWND_INIT))
         self._inflight = 0
         self._win_waiters: collections.deque[asyncio.Future] = \
             collections.deque()
@@ -280,16 +302,38 @@ class FrameChannel:
 
     # ---- congestion window (AIMD) ----
 
-    def _observe_rtt(self, rtt: float) -> None:
+    def _observe_rtt(self, rtt: float, alone: bool = False) -> None:
         """One completed request's round trip. RTT above 2x the
-        connection's floor means queueing at the peer: shrink the
-        window multiplicatively; otherwise grow it additively (classic
-        AIMD, deterministic given the sample sequence)."""
+        channel's floor means queueing at the peer: shrink the window
+        multiplicatively; otherwise grow it additively (classic AIMD,
+        deterministic given the sample sequence). At CWND_MIN an RTT
+        over the bound changes nothing: growing there only to shrink
+        on the next response is a cycle, not a probe.
+
+        The floor is the lowest RTT seen, until the peer's service time
+        steps up (a slower disk, a pause, a cold cache). ``alone`` says
+        no other request of this channel was at the peer when this one
+        was written, so it queued behind none of ours. When the last
+        CWND_INIT lone RTTs all exceed twice the floor, the floor
+        becomes the lowest of them, a windowed minimum as BBR's min-RTT
+        filter keeps one. No single sample moves it, and queueing that
+        other channels cause at a shared peer raises it only to what
+        this channel's requests, one at a time, still see. The window
+        then grows back additively. A floor kept for the connection's
+        life would read every later RTT as queueing and hold the window
+        at one request until a reconnect."""
+        if alone:
+            self._lone.append(rtt)
         if rtt < self._rtt_best:
             self._rtt_best = rtt
-        if rtt > self._rtt_best * 2 and self._cwnd > self.CWND_MIN:
-            self._cwnd = max(float(self.CWND_MIN), self._cwnd * 0.7)
-            self.stats.window_shrinks += 1
+        elif len(self._lone) == self._lone.maxlen \
+                and min(self._lone) > self._rtt_best * 2:
+            self._rtt_best = min(self._lone)
+            self.stats.service_steps += 1
+        if rtt > self._rtt_best * 2:
+            if self._cwnd > self.CWND_MIN:
+                self._cwnd = max(float(self.CWND_MIN), self._cwnd * 0.7)
+                self.stats.window_shrinks += 1
         elif self._cwnd < self.CWND_MAX:
             self._cwnd = min(float(self.CWND_MAX),
                              self._cwnd + 1.0 / max(self._cwnd, 1.0))
@@ -344,6 +388,40 @@ class FrameChannel:
             raise FrameChannelError(
                 f"frame channel {self._label()}: reconnect backoff "
                 f"window open")
+        # a channel pinned to a worker dials again while SO_REUSEPORT
+        # hands it another; after 4 dials a worker it keeps what it
+        # got, so a worker that is down or respawning stops nothing
+        dials = 0
+        while True:
+            reader, writer, dec, frames = await self._dial(loop)
+            dials += 1
+            meta = frames[0].meta or {}
+            got, n = meta.get("worker"), meta.get("workers")
+            self.peer_worker = got if isinstance(got, int) else None
+            self.peer_workers = n if isinstance(n, int) and n > 0 else 1
+            if self.worker is None or got == self.worker \
+                    or dials >= 4 * self.peer_workers:
+                break
+            writer.close()
+        self._backoff.reset()
+        self._retry_at = 0.0
+        self._writer = writer
+        self.stats.connects += 1
+        self._rtt_best = float("inf")  # fresh RTT floor per connection
+        self._lone.clear()
+        from ..stats import metrics
+        if metrics.HAVE_PROMETHEUS and not self._gauge_open:
+            metrics.FRAME_OPEN_CHANNELS.labels(self._label()).inc()
+            self._gauge_open = True
+        self._reader_task = loop.create_task(
+            self._read_loop(reader, writer, dec))
+        # frames the peer pipelined behind HELLO_OK in the same chunk
+        for fr in frames[1:]:
+            self._dispatch(fr)
+
+    async def _dial(self, loop):
+        """One connection and its handshake: (reader, writer, decoder,
+        frames), the first frame the peer's HELLO_OK."""
         writer = None
         try:
             if self.uds_path:
@@ -365,8 +443,8 @@ class FrameChannel:
             writer.write(MAGIC + encode_frame(HELLO, 0, hello_meta))
             await asyncio.wait_for(writer.drain(), self.connect_timeout)
             dec = FrameDecoder()
-            hello: Frame | None = None
-            while hello is None:
+            frames: list[Frame] = []
+            while not frames:
                 chunk = await asyncio.wait_for(reader.read(65536),
                                                self.connect_timeout)
                 if not chunk:
@@ -374,8 +452,7 @@ class FrameChannel:
                         f"frame channel {self._label()}: peer closed "
                         f"during handshake (predates the protocol?)")
                 frames = dec.feed(chunk)
-                if frames:
-                    hello = frames[0]
+            hello = frames[0]
             if hello.type != HELLO_OK:
                 why = str((hello.meta or {}).get("error", "")) \
                     if hello.type == GOAWAY else ""
@@ -397,20 +474,7 @@ class FrameChannel:
                 raise
             raise FrameChannelError(
                 f"frame channel {self._label()}: {e}") from e
-        self._backoff.reset()
-        self._retry_at = 0.0
-        self._writer = writer
-        self.stats.connects += 1
-        self._rtt_best = float("inf")  # fresh RTT floor per connection
-        from ..stats import metrics
-        if metrics.HAVE_PROMETHEUS and not self._gauge_open:
-            metrics.FRAME_OPEN_CHANNELS.labels(self._label()).inc()
-            self._gauge_open = True
-        self._reader_task = loop.create_task(
-            self._read_loop(reader, writer, dec))
-        # frames the peer pipelined behind HELLO_OK in the same chunk
-        for fr in frames[1:]:
-            self._dispatch(fr)
+        return reader, writer, dec, frames
 
     async def _read_loop(self, reader: asyncio.StreamReader,
                          writer: asyncio.StreamWriter,
@@ -579,6 +643,7 @@ class FrameChannel:
             frame = encode_frame(REQ, req_id, meta, body)
             loop = asyncio.get_running_loop()
             fut: asyncio.Future = loop.create_future()
+            alone = not self._pending   # none of ours ahead at the peer
             self._pending[req_id] = fut
             self.stats.requests += 1
             from ..stats import metrics
@@ -593,7 +658,7 @@ class FrameChannel:
                 await writer.drain()
                 status, hdrs, payload, _ = await asyncio.wait_for(
                     fut, deadline)
-                self._observe_rtt(loop.time() - t0)
+                self._observe_rtt(loop.time() - t0, alone)
                 return status, hdrs, payload
             except asyncio.TimeoutError as e:
                 raise FrameChannelError(
@@ -653,10 +718,13 @@ class FrameHub:
             BreakerRegistry(threshold=5, reset_timeout=2.0,
                             half_open_max=2)
         self._channels: dict[str, FrameChannel] = {}
+        self._turns: dict[str, int] = {}
 
     def get(self, target: str = "", uds_path: str = "",
-            hop: str = "") -> FrameChannel:
+            hop: str = "", worker: int | None = None) -> FrameChannel:
         key = uds_path or target
+        if worker is not None:
+            key = f"{key}#w{worker}"
         ch = self._channels.get(key)
         if ch is None:
             if len(self._channels) >= self.MAX_CHANNELS:
@@ -667,8 +735,31 @@ class FrameHub:
                 target=target, uds_path=uds_path, token=self.token,
                 request_timeout=self.request_timeout, ssl=self._ssl,
                 jwt_key=self.jwt_key, hop=hop,
-                breaker=self.breakers.get(f"frame:{key}"))
+                breaker=self.breakers.get(f"frame:{key}"),
+                worker=worker)
         return ch
+
+    def pick(self, target: str) -> FrameChannel:
+        """The channel for one request to the server at ``target``,
+        spread over the workers of a ``-workers`` fleet as an HTTP
+        client's pooled connections are. SO_REUSEPORT hands each
+        connection to one worker, so with one channel every request of
+        this client would enter at that worker, and each request for
+        another worker's volume would cross its sibling hop. Once the
+        first channel's handshake reports N workers, requests take N
+        channels in turn, each pinned to its worker. A server that is
+        no fleet, or does not report its size, keeps the one channel."""
+        ch = self.get(target=target)
+        n = ch.peer_workers
+        if n <= 1:
+            return ch
+        if ch.worker is None:
+            ch.worker = ch.peer_worker      # its worker, on a redial too
+        turn = self._turns.get(target, 0)
+        self._turns[target] = (turn + 1) % n
+        if turn == ch.worker:
+            return ch
+        return self.get(target=target, worker=turn)
 
     def stats_dict(self) -> dict:
         return {key: ch.stats.to_dict()

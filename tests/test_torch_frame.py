@@ -933,3 +933,127 @@ def test_cancelled_window_waiter_does_not_shrink_window():
             finally:
                 await ch.close()
     run(body())
+
+
+class _Fleet:
+    """A frame server that hands each connection to a worker drawn at
+    random, as SO_REUSEPORT does for a `-workers` fleet, and names it
+    in HELLO_OK, with the fleet's size when `workers` is set. Each
+    response's body is the worker that served it."""
+
+    def __init__(self, workers: int | None, seed: int = 7):
+        self.workers = workers
+        self.rng = random.Random(seed)
+        self.dials = 0
+        self.writers: list = []
+        self.port = 0
+        self._server = None
+
+    async def __aenter__(self):
+        self._server = await asyncio.start_server(self._conn,
+                                                  "127.0.0.1", 0)
+        self.port = self._server.sockets[0].getsockname()[1]
+        return self
+
+    async def __aexit__(self, *exc):
+        self.drop()
+        self._server.close()
+        await self._server.wait_closed()
+
+    def drop(self) -> None:
+        for w in self.writers:
+            w.close()
+        self.writers.clear()
+
+    async def _conn(self, reader, writer):
+        self.dials += 1
+        worker = self.rng.randrange(self.workers or 1)
+        self.writers.append(writer)
+        dec = FrameDecoder()
+        first = True
+        try:
+            while True:
+                chunk = await reader.read(65536)
+                if not chunk:
+                    return
+                if first:
+                    chunk = chunk[len(MAGIC):]
+                    first = False
+                for fr in dec.feed(chunk):
+                    if fr.type == HELLO:
+                        meta = {"v": 1, "worker": worker}
+                        if self.workers:
+                            meta["workers"] = self.workers
+                        writer.write(encode_frame(HELLO_OK, 0, meta))
+                    elif fr.type == REQ:
+                        writer.write(encode_frame(
+                            RESP, fr.req_id, {"s": 200},
+                            str(worker).encode()))
+        except OSError:
+            pass
+        finally:
+            writer.close()
+
+
+@pytest.mark.parametrize("workers", [2, 3])
+def test_hub_spreads_a_client_over_a_fleets_workers(workers):
+    """FrameHub.pick against a fleet: the first request takes the one
+    channel, whatever worker it reached; once that handshake reports
+    the fleet's size, requests take one channel per worker in turn,
+    each pinned to its worker (dialled again until the handshake names
+    it), and they stay pinned after the fleet drops every connection."""
+    async def body():
+        async with _Fleet(workers) as fleet:
+            hub = FrameHub()
+            target = f"127.0.0.1:{fleet.port}"
+
+            async def turns(n: int) -> list[int]:
+                got = []
+                for _ in range(n):
+                    st, _, b = await hub.pick(target).request("GET", "/x")
+                    assert st == 200
+                    got.append(int(b))
+                return got
+
+            try:
+                first = await turns(1)
+                spread = await turns(2 * workers)
+                fleet.drop()
+                await asyncio.sleep(0.05)
+                again = await turns(2 * workers)
+                chans = list(hub._channels.values())
+            finally:
+                await hub.close()
+            return first, spread, again, chans
+
+    first, spread, again, chans = run(body())
+    assert first[0] in range(workers)
+    assert spread == list(range(workers)) * 2
+    assert again == list(range(workers)) * 2
+    assert len(chans) == workers
+    assert sorted(ch.worker for ch in chans) == list(range(workers))
+    assert all(ch.peer_worker == ch.worker for ch in chans)
+
+
+def test_hub_keeps_one_channel_without_a_fleet_size():
+    """A server whose HELLO_OK names no fleet size (no `-workers`
+    fleet, or the reference's frame server) keeps the client on one
+    channel and one connection."""
+    async def body():
+        async with _Fleet(None) as fleet:
+            hub = FrameHub()
+            target = f"127.0.0.1:{fleet.port}"
+            try:
+                chans = set()
+                for _ in range(6):
+                    ch = hub.pick(target)
+                    st, _, _ = await ch.request("GET", "/x")
+                    assert st == 200
+                    chans.add(id(ch))
+                return chans, fleet.dials, list(hub._channels.values())
+            finally:
+                await hub.close()
+
+    chans, dials, held = run(body())
+    assert len(chans) == 1 and dials == 1
+    assert held[0].peer_workers == 1 and held[0].worker is None

@@ -367,3 +367,81 @@ def test_a_failed_scenario_keeps_its_directory(monkeypatch, capsys):
             assert f.read() == "daemon log\n"
         import shutil
         shutil.rmtree(kept)
+
+
+def test_slo_watch_reads_the_scenario_and_the_status_frames():
+    """`tools/slo_watch.py` takes its burns, reads and errors from the
+    scenario's own lines, differences two `/status` `frames` snapshots
+    per worker and channel, measures the armed phase from the last
+    healthy line to the page with the reads in between, and waits for a
+    fleet's port to close."""
+    from seaweedfs_tpu_torch.tools import slo_watch
+    line = ("  armed phase: status=warn fast_burn=99.0 slow_burn=13.9 "
+            "reads=33169 errors=13358")
+    assert slo_watch._burns(line) == {
+        "status": "warn", "fast_burn": 99.0, "slow_burn": 13.9,
+        "reads": 33169, "errors": 13358}
+    healthy = ("  healthy phase: status=ok reads=6468 errors=2 "
+               "first_error=OperationError('read 1,03: lookup 1')")
+    assert slo_watch._burns(healthy) == {"status": "ok", "reads": 6468,
+                                         "errors": 2}
+    first = {"w0": {"w1.sock": {"requests": 10, "window_shrinks": 4}}}
+    last = {"w0": {"w1.sock": {"requests": 30, "window_shrinks": 4}},
+            "w1": {"m:1": {"requests": 5, "window_shrinks": 0}}}
+    assert slo_watch._channel_delta(first, last) == {
+        "w0 -> w1.sock": {"requests": 20, "window_shrinks": 0},
+        "w1 -> m:1": {"requests": 5, "window_shrinks": 0}}
+    run = {"rc": 0, "wall_s": 40.0, "_lines": [
+        (10.0, healthy),
+        (20.0, "  armed phase: status=warn fast_burn=9.0 slow_burn=6.1 "
+               "reads=6768 errors=2"),
+        (30.0, "  armed phase: status=page fast_burn=99.0 slow_burn=14.5 "
+               "reads=7068 errors=3"),
+        (35.0, "  disarmed phase: status=ok (fast window drained)")],
+        "_polls": [(5.0, {}), (12.0, first), (28.0, last), (33.0, {})]}
+    got = slo_watch.summarize(run)
+    assert got["paged"] and got["page_s"] == 20.0
+    assert got["armed_reads"] == 600 and got["armed_reads_per_s"] == 30.0
+    assert got["armed_errors"] == 1 and got["at_end"]["slow_burn"] == 14.5
+    assert got["frames"] == slo_watch._channel_delta(first, last)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]          # bound, not listening
+        t0 = time.monotonic()
+        slo_watch._wait_closed(port)
+        assert time.monotonic() - t0 < 1.0
+
+
+def test_a_daemon_waits_until_its_fixed_port_can_be_bound():
+    """`procutil` starts a daemon only once its fixed ports can be
+    bound. A client socket that closed first holds its local port in
+    TIME_WAIT, and a listener cannot bind it then (the drivers' daemons
+    died so with EADDRINUSE where the ephemeral range covers their
+    ports); a port freed while waiting is taken at once."""
+    import threading
+    from seaweedfs_tpu_torch.tools import procutil
+    assert procutil.fixed_ports(
+        ["master", "-port", "21570", "-mdir", "/m", "-volumeSizeLimitMB",
+         "8", "-s3.port", "8333", "-master", "127.0.0.1:9333"]) == [
+        21570, 8333]
+    with socket.socket() as srv:
+        srv.bind(("127.0.0.1", 0))
+        srv.listen()
+        cli = socket.socket()
+        cli.bind(("127.0.0.1", 0))
+        port = cli.getsockname()[1]
+        cli.connect(srv.getsockname())
+        peer, _ = srv.accept()
+        cli.close()                    # closed first: TIME_WAIT
+        peer.close()
+    t0 = time.monotonic()
+    assert not procutil.wait_bindable(port, limit_s=0.3)
+    assert time.monotonic() - t0 >= 0.3
+    held = socket.socket()
+    held.bind(("127.0.0.1", 0))
+    held.listen()
+    busy = held.getsockname()[1]
+    threading.Timer(0.3, held.close).start()
+    t0 = time.monotonic()
+    assert procutil.wait_bindable(busy, limit_s=10)
+    assert 0.2 <= time.monotonic() - t0 < 5

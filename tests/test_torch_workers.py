@@ -150,6 +150,152 @@ def test_worker_route_middleware_in_proc(tmp_path):
 
 
 
+def test_sibling_hop_overlaps_reads_after_a_service_time_step(
+        tmp_path, monkeypatch):
+    """Two in-proc workers; 8 needles owned by worker 1 are read through
+    worker 0, 8 at a time, so each read crosses the sibling frame hop.
+    After a healthy warm-up, `store.read` latency (100 ms) is armed: a
+    step in the sibling's service time, not queueing. The first slow
+    round reads as queueing and the hop's window falls to one read; the
+    next round's 8 lone reads expire its floor, and the rounds after
+    overlap at the sibling (at least 4 reads inside its store at once)
+    instead of completing one at a time behind a window held at one
+    request."""
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.server.workers import WorkerContext
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.util import failpoints as fp
+
+    at_sibling = {"now": 0, "peak": 0, "watch": False}
+    lock = threading.Lock()
+
+    def counted(fn):
+        def read(*a, **kw):
+            with lock:
+                at_sibling["now"] += 1
+                if at_sibling["watch"]:
+                    at_sibling["peak"] = max(at_sibling["peak"],
+                                             at_sibling["now"])
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    at_sibling["now"] -= 1
+        return read
+
+    async def body():
+        async with Cluster(str(tmp_path), n_servers=0) as c:
+            state_dir = str(tmp_path / "wstate")
+            d = str(tmp_path / "wdata")
+            workers = []
+            for i in range(2):
+                ctx = WorkerContext(i, 2, 0, state_dir, token="tok")
+                store = Store([d], max_volume_counts=[8], partition=(i, 2))
+                vs = VolumeServer(store, c.master.url, port=0,
+                                  pulse_seconds=0.2, worker_ctx=ctx)
+                await vs.start()
+                ctx.public_port = vs.port
+                workers.append(vs)
+            try:
+                sib = workers[1].store
+                sib.add_volume(3)          # 3 % 2: worker 1 owns it
+                needles = {f"3,{nid:02x}deadbeef": f"needle {nid}".encode()
+                           * 40 for nid in range(1, 9)}
+                for fid, data in needles.items():
+                    st, out = await c.put(fid, workers[1].url, data)
+                    assert st == 201, out
+                for name in ("read_needle", "read_needle_ex"):
+                    monkeypatch.setattr(sib, name,
+                                        counted(getattr(sib, name)))
+
+                async def rounds(n: int) -> None:
+                    async def reader(fid: str) -> None:
+                        for _ in range(n):
+                            st, got = await c.get(fid, workers[0].url)
+                            assert st == 200 and got == needles[fid]
+                    await asyncio.gather(*(reader(f) for f in needles))
+
+                await rounds(5)            # healthy: sets the RTT floor
+                ch = workers[0].sibling_frame_channel(1)
+                assert ch is not None and ch.stats.requests >= 40
+                fp.arm("store.read", "latency=100:*")
+                await rounds(1)            # the step, first read as queueing
+                at_sibling["watch"] = True
+                t0 = time.monotonic()
+                await rounds(4)
+                assert time.monotonic() - t0 >= 0.4     # every read slow
+                assert at_sibling["peak"] >= 4, (at_sibling,
+                                                 ch.stats.to_dict())
+                assert ch.stats.service_steps >= 1
+                assert ch.stats.requests >= 8 * 10  # every read on frames
+            finally:
+                fp.reset()
+                for vs in workers:
+                    await vs.stop()
+    run(body())
+
+
+def test_frame_forward_to_a_sibling_fires_proxy_faults(tmp_path):
+    """A frame client that reaches worker 0 for a needle of worker 1 is
+    forwarded over the sibling frame hop through the same breaker and
+    `worker.proxy` chaos site as the HTTP routing middleware: an armed
+    burst of 3 errors answers 502 three times, opens the sibling's
+    breaker (threshold 3) with `breaker_open` in the journal, and the
+    next read is refused 503 while it is open. Once the breaker lets a
+    probe through, the read is served and the breaker closes."""
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.server.workers import WorkerContext
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.util import events
+    from seaweedfs_tpu_torch.util import failpoints as fp
+    from seaweedfs_tpu_torch.util.frame import FrameChannel
+
+    async def body():
+        async with Cluster(str(tmp_path), n_servers=0) as c:
+            state_dir = str(tmp_path / "wstate")
+            d = str(tmp_path / "wdata")
+            workers = []
+            for i in range(2):
+                ctx = WorkerContext(i, 2, 0, state_dir, token="tok")
+                store = Store([d], max_volume_counts=[8], partition=(i, 2))
+                vs = VolumeServer(store, c.master.url, port=0,
+                                  pulse_seconds=0.2, worker_ctx=ctx)
+                await vs.start()
+                ctx.public_port = vs.port
+                workers.append(vs)
+            ch = FrameChannel(target=workers[0].url)
+            try:
+                workers[1].store.add_volume(3)
+                fid = "3,01deadbeef"
+                st, out = await c.put(fid, workers[1].url, b"owned by 1")
+                assert st == 201, out
+                st, _, got = await ch.request("GET", f"/{fid}")
+                assert st == 200 and got == b"owned by 1"
+                events.reset()
+                fp.arm("worker.proxy", "error:3")
+                for _ in range(3):
+                    st, _, got = await ch.request("GET", f"/{fid}")
+                    assert st == 502, got
+                sib = workers[0].worker_ctx.sibling_addr(1)
+                br = workers[0]._sibling_breakers.get(sib)
+                assert br.state == br.OPEN
+                opened = [e for e in events.events_dict()["events"]
+                          if e["type"] == "breaker_open"]
+                assert [e["upstream"] for e in opened] == [sib]
+                st, _, got = await ch.request("GET", f"/{fid}")
+                assert st == 503, got
+                br.opened_at -= br.reset_timeout   # the reset elapses
+                st, _, got = await ch.request("GET", f"/{fid}")
+                assert st == 200 and got == b"owned by 1"
+                assert br.state == br.CLOSED
+            finally:
+                fp.reset()
+                await ch.close()
+                for vs in workers:
+                    await vs.stop()
+    run(body())
+
+
 def test_worker_registers_only_once_its_siblings_listen(tmp_path,
                                                         monkeypatch):
     """A -workers worker holds its first heartbeat until every sibling
