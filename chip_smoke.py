@@ -201,7 +201,25 @@ then:
    pins both culprits and writes the generated bytes; (c) the rebuild of
    {0,3,7} from 11 inputs decides by the needle CRCs and writes the
    generated bytes; each step's K1 launches equal the reckoning;
+17. runs `python -m seaweedfs_tpu_torch.cli bench-ec`, the port's
+   bench.py, in a subprocess as a user runs it, at one stage of 4 MiB a
+   shard (SWTPU_TORCH_BENCH_BYTES): its child holds K1 ("vpu") and K4
+   ("mxu") to the CPU oracle at that size and times encode and the
+   4-lost rebuild through each, times K2 through mesh.batched_encode on
+   a one-rank NCCL group held to its plain version, and K5 held to the
+   host CRC; holds its one JSON line (the metric, backend gpu, both
+   paths verified, every rate above 0 and under the card's HBM rate
+   over the bytes it moves for each data byte, no error) and the
+   child's launches of
+   all four kernels on its stderr, which join the kernels line; no
+   process of it imported jax or seaweedfs_tpu;
    then prints one JSON line describing each kernel.
+
+`run_benches(out_dir, card)` runs every benchmark entry point of the port
+at its defaults through run_drivers (tools.bench, which `cli bench-ec`
+runs; bench_ec's full run, bakeoff and engine; bench_pipeline 1024 16;
+bench_needle 1 2 and hop), writing each output to out_dir; the
+script's main does not call it.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -244,15 +262,17 @@ from seaweedfs_tpu_torch.parallel import dist as pdist
 from seaweedfs_tpu_torch.parallel import mesh as pmesh
 from seaweedfs_tpu_torch.storage import types as st
 from seaweedfs_tpu_torch.storage.needle_map import pack_entry
+from seaweedfs_tpu_torch.tools import bench
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # scratch space for the volume phase, inside the checkout (git-ignored)
 WORK_DIR = os.path.join(ROOT, ".smoke_volume")
 
 MIB = 1 << 20
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense
-# int8 tensor-core operations/s
-HBM_BYTES_PER_S = 3.35e12
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s (the port's
+# benchmark holds the figure, so the repo has one) and dense int8
+# tensor-core operations/s
+HBM_BYTES_PER_S = bench.HBM_BYTES_PER_S
 INT8_OPS_PER_S = 1979e12
 # per Hopper SM: lanes of the INT32 pipe (shifts, LOP3, PRMT), and the
 # 32 banks of shared memory, which serve one 32-bit load per lane a clock
@@ -5833,6 +5853,105 @@ async def _drive_rot(dev: torch.device, seed: int, target: int, card: str,
             "found": plan["found"]}
 
 
+# phase 17: `cli bench-ec` at one stage of 4 MiB a shard, its budget
+# bounding the phase
+BENCH_BYTES = 4 * MIB
+BENCH_BUDGET_S = 120
+# the keys of bench-ec's line that phase 17 holds above 0 and under the
+# ceiling
+BENCH_RATES = ("encode_GBps", "rebuild4_GBps", "batched_encode_GBps",
+               "crc_device_GBps")
+
+
+def bench_launches(log: str) -> dict | None:
+    """The kernel launches bench-ec's child logged on its stderr (its
+    `launches {...}` line), or None if it logged none."""
+    for line in log.splitlines():
+        if line.startswith("[bench ") and "] " in line:
+            rest = line.split("] ", 1)[1]
+            if rest.startswith(bench.LAUNCHES_TAG):
+                return json.loads(rest[len(bench.LAUNCHES_TAG):])
+    return None
+
+
+def phase_bench(card: str = "", on_card: bool = True,
+                bench_bytes: int = BENCH_BYTES) -> dict:
+    """`python -m seaweedfs_tpu_torch.cli bench-ec` in a subprocess as a
+    user runs it, with SWTPU_TORCH_BENCH_BYTES at bench_bytes (one stage)
+    and PYTHONPROFILEIMPORTTIME=1 (the CLI, the bench and its child log
+    their imports). On the card SWTPU_TORCH_EC_BACKEND is dropped, so the
+    child runs on the GPU. Holds: exit 0 and exactly one stdout line,
+    its metric the JAX package's bench.py's, backend "gpu" (on the CPU
+    "cpu"), both paths verified against the CPU oracle, every rate of
+    BENCH_RATES above 0 and under bench.ceiling_gbps, no error key;
+    on the card the child's log shows K1, K2, K4 and K5 each launched;
+    no process imported jax or seaweedfs_tpu. Returns the line, the
+    child's launches and the wall seconds."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", pl.METHOD_ENV)}
+    if on_card:
+        env.pop(pl.BACKEND_ENV, None)
+    env.update({bench.BYTES_ENV: str(bench_bytes),
+                bench.BUDGET_ENV: str(BENCH_BUDGET_S),
+                "PYTHONPROFILEIMPORTTIME": "1"})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "bench-ec"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=BENCH_BUDGET_S + 60)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench-ec printed {len(lines)} lines on stdout: "
+          f"{lines[:3]}; stderr {proc.stderr[-1500:]}")
+    res = json.loads(lines[0])
+    check(proc.returncode == 0, f"bench-ec exited {proc.returncode}: {res}")
+    check(res["metric"] == bench.METRIC, f"bench-ec's metric {res['metric']}")
+    check(res["backend"] == ("gpu" if on_card else "cpu"),
+          f"bench-ec ran on {res['backend']}")
+    check(res.get("paths_verified") == {"vpu": True, "mxu": True},
+          f"paths verified {res.get('paths_verified')}")
+    for key in BENCH_RATES:
+        check(0 < res.get(key, 0) < bench.ceiling_gbps(key),
+              f"bench-ec's {key} is {res.get(key)}, not in (0, "
+              f"{bench.ceiling_gbps(key)}), the HBM rate over the bytes "
+              f"it moves for each data byte")
+    check("error" not in res, f"bench-ec reported {res.get('error')}")
+    launches = bench_launches(proc.stderr)
+    check(launches is not None, "bench-ec's child logged no launches")
+    if on_card:
+        check(all(n >= 1 for n in launches.values()),
+              f"bench-ec's child launched {launches}")
+    bad = forbidden_imports(proc.stderr)
+    check(bad == [], f"bench-ec's processes imported {bad[:5]}")
+    tag = f"({card})" if card else "(CPU rehearsal)"
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench "):
+            print(f"  {line}")
+    print(f"  bench-ec line {tag}: {lines[0]}")
+    print(f"  bench-ec child launches: {launches}; exit 0 in {wall:.3f} s; "
+          f"no process imported jax or seaweedfs_tpu")
+    return {"result": res, "launches": launches, "s": wall}
+
+
+def bench_runs() -> list[tuple[str, list[str]]]:
+    """The port's benchmark entry points at their defaults, as (module of
+    seaweedfs_tpu_torch/tools, arguments): bench (what `cli bench-ec`
+    runs), bench_ec's full run, bakeoff and engine modes, bench_pipeline
+    at 1 GiB with a 16 MiB buffer, and bench_needle's workers 1 and 2
+    and hop."""
+    return [("bench", []), ("bench_ec", []),
+            ("bench_ec", ["--mode", "bakeoff"]),
+            ("bench_ec", ["--mode", "engine"]),
+            ("bench_pipeline", ["1024", "16"]),
+            ("bench_needle", ["1", "2"]), ("bench_needle", ["hop"])]
+
+
+def run_benches(out_dir: str, card: str = "") -> list[dict]:
+    """Every benchmark entry point of the port at its defaults, through
+    run_drivers: one row each, each output in out_dir."""
+    return run_drivers(out_dir, card, bench_runs())
+
+
 def driver_runs() -> list[tuple[str, list[str]]]:
     """Every scenario of the port's drivers once: each soak scenario (at
     --quick, which only heal, qos and meta read), chaos and chaos ha at
@@ -6242,6 +6361,13 @@ def main(argv=None) -> int:
           f"to the reckoning from the seed alone {rot['expected']}; "
           f"{rot['retried']} reads retried, rot pinned {rot['found']}")
 
+    clock.phase("== phase 17: `python -m seaweedfs_tpu_torch.cli bench-ec` "
+                "(the port's bench.py) in a subprocess at one 4 MiB stage: "
+                "K1 and K4 held to the CPU oracle and timed, K2 through "
+                "mesh.batched_encode, K5")
+    bench_run = phase_bench(card)
+    bench_k = bench_run["launches"]
+
     clock.phase(None)
     threads, children = left_running()
     check(children == [], f"child processes left running: {children}")
@@ -6255,7 +6381,7 @@ def main(argv=None) -> int:
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:69",
         "launches": main_launches + store_launches + server_launches
         + mxu_k1 + cluster_launches + filer_launches + gateway_launches
-        + mount_launches + rot_launches,
+        + mount_launches + rot_launches + bench_k["gf256_transform"],
         "max_abs_err": max(max_err, store["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6263,7 +6389,8 @@ def main(argv=None) -> int:
         "name": "gf256_stacked_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf256_transform.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_pallas.py:120",
-        "launches": mesh["stacked_launches"],
+        "launches": mesh["stacked_launches"]
+        + bench_k["gf256_stacked_transform"],
         "max_abs_err": max(stacked_err, mesh["max_abs_err"]),
         "ms": t6["ms"], "plain_ms": t6["plain_ms"],
         "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],
@@ -6271,7 +6398,8 @@ def main(argv=None) -> int:
         "name": "gf2_bitmatrix_transform", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/gf2_bitmatrix.cu",
         "replaces": "seaweedfs_tpu/ops/gf256_mxu.py:62",
-        "launches": mxu_launches, "calls": mxu_calls,
+        "launches": mxu_launches + bench_k["gf2_bitmatrix_transform"],
+        "calls": mxu_calls,
         "max_abs_err": mxu_err,
         "ms": t4["ms"], "plain_ms": t4["plain_ms"],
         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
@@ -6279,7 +6407,8 @@ def main(argv=None) -> int:
         "name": "crc32c_batch", "route": "cuda",
         "source": "seaweedfs_tpu_torch/ops/csrc/crc32c.cu",
         "replaces": "seaweedfs_tpu/ops/crc32c_jax.py:95",
-        "launches": t5["launches"], "max_abs_err": crc_err,
+        "launches": t5["launches"] + bench_k["crc32c_batch"],
+        "max_abs_err": crc_err,
         "ms": t5["ms"], "plain_ms": t5["plain_ms"],
         "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
         "library_ms": None, "held_against_plain": True}]}))

@@ -25,6 +25,7 @@ volume tools.
     python -m seaweedfs_tpu_torch.cli backup -dir D -volumeId N -server H:P
     python -m seaweedfs_tpu_torch.cli mount -dir /mnt/weed \\
         -master 127.0.0.1:9333 [-collection C] [-chunkSizeLimitMB 4]
+    python -m seaweedfs_tpu_torch.cli bench-ec
 
 The port of seaweedfs_tpu/cli.py's `master`, `volume`, `filer`,
 `filer.copy`, `s3`, `webdav`, `filer.replicate`, `server`, `shell`,
@@ -35,8 +36,9 @@ supervisor, master.toml's maintenance scripts and sequencer, the filer's
 notification queue from -notify or a discovered notification.toml, and
 replication.toml's defaults for filer.replicate). `mount` serves a FUSE
 mount of an embedded filer (-filerStore) through mount/fuse_adapter.py,
-blocking until the mount point is unmounted. `bench-ec` is not ported
-yet. Start-up of one master, volume server or filer
+blocking until the mount point is unmounted. `bench-ec` runs the EC
+kernel benchmark, `python -m seaweedfs_tpu_torch.tools.bench`, in a
+subprocess and exits with its code. Start-up of one master, volume server or filer
 process, and of the combined `server`, is split out as
 `start_master(args)`, `start_volume(args)`, `start_filer(args)` and
 `start_server(args)`, coroutines that return the started server(s) and
@@ -317,7 +319,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=1 << 20,
                    help="EC recover transforms smaller than this many "
                         "bytes run on the host CPU encoder instead of "
-                        "the device")
+                        "the device (`python -m seaweedfs_tpu_torch.tools."
+                        "bench_ec --mode bakeoff` measures the crossover)")
 
     bk = sub.add_parser("backup", help="incrementally back up one volume "
                                        "from a volume server to a local dir")
@@ -579,6 +582,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="embedded filer store backing the mount")
 
     sub.add_parser("version", help="print version")
+    sub.add_parser("bench-ec", help="EC kernel benchmark on the GPU "
+                                    "(seaweedfs_tpu_torch.tools.bench)")
 
     sh = sub.add_parser("shell", help="admin shell (interactive or -c)")
     _add_common(sh)
@@ -2149,7 +2154,20 @@ progress = "./replicate.progress"
 }
 
 
-def main(argv: list[str] | None = None) -> None:
+def _run_bench_ec() -> int:
+    """Run the port's benchmark as `python -m` in a subprocess (the
+    checkout root on its PYTHONPATH); returns its exit code."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ,
+               PYTHONPATH=root if not path else root + os.pathsep + path)
+    return subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch.tools.bench"],
+        env=env).returncode
+
+
+def main(argv: list[str] | None = None) -> int | None:
     args = build_parser().parse_args(argv)
     # the worker supervisor re-executes this same command line with
     # -workerIndex appended; remember it when given programmatically
@@ -2173,6 +2191,8 @@ def main(argv: list[str] | None = None) -> None:
         except BrokenPipeError:
             os._exit(0)
         return
+    if args.cmd == "bench-ec":
+        return _run_bench_ec()
     offline = {"fix": _run_fix, "export": _run_export,
                "compact": _run_compact, "mount": _run_mount}
     if args.cmd in offline:

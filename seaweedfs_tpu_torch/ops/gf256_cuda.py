@@ -118,15 +118,14 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(np.any(b_starts[last[hit]] + b_len > a_starts[hit]))
 
 
-def _check_out(consts: torch.Tensor, x: torch.Tensor,
-               out: torch.Tensor) -> None:
+def check_out(rows: int, x: torch.Tensor, out: torch.Tensor) -> None:
     """out must be a (B, rows, L) uint8 view on x's device whose last axis
     is contiguous and which shares no byte with x."""
     if not isinstance(out, torch.Tensor):
         raise TypeError("out must be a torch tensor")
     if out.dtype != torch.uint8:
         raise TypeError(f"out must be uint8, got {out.dtype}")
-    want = (x.shape[0], consts.shape[0], x.shape[2])
+    want = (x.shape[0], rows, x.shape[2])
     if tuple(out.shape) != want:
         raise ValueError(f"out must be {want}, got {tuple(out.shape)}")
     if out.device != x.device:
@@ -159,21 +158,33 @@ def _launch(consts: torch.Tensor, x: torch.Tensor,
     return True
 
 
-def gf256_transform(consts: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _transform(consts: torch.Tensor, x: torch.Tensor,
+               out: torch.Tensor | None, stacked: bool) -> torch.Tensor:
+    """The body of both wrappers; `stacked` picks the count raised."""
+    _check(consts, x)
+    if out is None:
+        out = torch.empty((x.shape[0], consts.shape[0], x.shape[2]),
+                          dtype=torch.uint8, device=x.device)
+    else:
+        check_out(consts.shape[0], x, out)
+    if x.device.type == "cpu":
+        return _reference_into(consts, x, out)
+    if _launch(consts, x, out):
+        count_launch(stacked)
+    return out
+
+
+def gf256_transform(consts: torch.Tensor, x: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """(rows, k, 8) constants, (B, k, L) uint8 -> (B, rows, L) uint8.
 
     x may be a strided view along its first two axes (for example the
     data rows of a (B, k+m, L) block); its last axis must be contiguous.
-    On CUDA the kernel is launched on the current stream and the call
-    returns without synchronising."""
-    _check(consts, x)
-    if x.device.type == "cpu":
-        return gf256_transform_reference(consts, x)
-    out = torch.empty((x.shape[0], consts.shape[0], x.shape[2]),
-                      dtype=torch.uint8, device=x.device)
-    if _launch(consts, x, out):
-        count_launch()
-    return out
+    `out`, when given, is a (B, rows, L) view under the contract of
+    gf256_stacked_transform's, and is returned. On CUDA the kernel is
+    launched on the current stream and the call returns without
+    synchronising."""
+    return _transform(consts, x, out, stacked=False)
 
 
 def gf256_stacked_transform(consts: torch.Tensor, x: torch.Tensor,
@@ -185,17 +196,7 @@ def gf256_stacked_transform(consts: torch.Tensor, x: torch.Tensor,
     (B, rows, L) uint8 view whose last axis is contiguous, whose batch
     and row axes may be strided (for example the parity rows of a
     (B, k+m, L) block), and which overlaps x nowhere. Returns out."""
-    _check(consts, x)
-    if out is None:
-        out = torch.empty((x.shape[0], consts.shape[0], x.shape[2]),
-                          dtype=torch.uint8, device=x.device)
-    else:
-        _check_out(consts, x, out)
-    if x.device.type == "cpu":
-        return _reference_into(consts, x, out)
-    if _launch(consts, x, out):
-        count_launch(stacked=True)
-    return out
+    return _transform(consts, x, out, stacked=True)
 
 
 def _reference_into(consts: torch.Tensor, x: torch.Tensor,
@@ -236,5 +237,5 @@ def gf256_stacked_transform_reference(consts: torch.Tensor, x: torch.Tensor,
     _check(consts, x)
     if out is None:
         return gf256_transform_reference(consts, x)
-    _check_out(consts, x, out)
+    check_out(consts.shape[0], x, out)
     return _reference_into(consts, x, out)

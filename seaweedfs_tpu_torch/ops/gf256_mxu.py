@@ -47,6 +47,7 @@ import torch
 
 from ..ec import gf
 from . import _build
+from .gf256_cuda import check_out
 
 MAX_ROWS = 16
 MAX_K = 16
@@ -147,26 +148,34 @@ def chunks(bsz: int, length: int, k: int, rows: int,
 
 
 def gf2_bitmatrix_transform(bitmat: torch.Tensor, x: torch.Tensor,
-                            chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+                            chunk_bytes: int = CHUNK_BYTES,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
     """(8 rows, 8 k) int8 bit-matrix, (B, k, L) uint8 -> (B, rows, L) uint8.
 
     x may be strided along its first two axes; its last axis must be
-    contiguous. On CUDA one kernel is launched on the current stream and
-    the call returns without synchronising; `chunk_bytes` bounds the
-    plain version's intermediates on the CPU and means nothing to the
-    kernel."""
+    contiguous. `out`, when given, is a (B, rows, L) uint8 view whose
+    last axis is contiguous, strided along its first two axes and sharing
+    no byte with x, and is returned. On CUDA one kernel is launched on
+    the current stream and the call returns without synchronising;
+    `chunk_bytes` bounds the plain version's intermediates on the CPU and
+    means nothing to the kernel."""
     _check(bitmat, x)
+    rows = bitmat.shape[0] // 8
+    if out is not None:
+        check_out(rows, x, out)
     if x.device.type == "cpu":
-        return gf2_bitmatrix_transform_reference(bitmat, x, chunk_bytes)
+        got = gf2_bitmatrix_transform_reference(bitmat, x, chunk_bytes)
+        return got if out is None else out.copy_(got)
     if x.device.type != "cuda":
         raise ValueError(f"no GF(2) bit-matrix kernel for device "
                          f"{x.device}")
     if x.shape[2] > 1 and x.stride(2) != 1:
         raise ValueError("x's last axis must be contiguous")
-    rows, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+    k = bitmat.shape[1] // 8
     bsz, _, length = x.shape
-    out = torch.empty((bsz, rows, length), dtype=torch.uint8,
-                      device=x.device)
+    if out is None:
+        out = torch.empty((bsz, rows, length), dtype=torch.uint8,
+                          device=x.device)
     if out.numel() == 0:
         return out
     bitmat = bitmat.contiguous()

@@ -458,6 +458,31 @@ def test_mount_parser_has_the_reference_flags_and_defaults():
         cli.build_parser().parse_args(["mount"])
 
 
+def test_bench_ec_is_parsed_and_runs_the_ports_bench(monkeypatch):
+    """`bench-ec` parses as in the reference (no flags of its own) and its
+    runner starts `python -m seaweedfs_tpu_torch.tools.bench` with the
+    checkout on PYTHONPATH, returning the bench's exit code."""
+    from seaweedfs_tpu import cli as ref_cli
+    from seaweedfs_tpu_torch import cli
+    assert vars(cli.build_parser().parse_args(["bench-ec"])) == \
+        vars(ref_cli.build_parser().parse_args(["bench-ec"]))
+    seen = []
+
+    class Done:
+        returncode = 7
+
+    def fake_run(argv, env=None, **kw):
+        seen.append((argv, env))
+        return Done()
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    assert cli.main(["bench-ec"]) == 7
+    [(argv, env)] = seen
+    assert argv == [sys.executable, "-m", "seaweedfs_tpu_torch.tools.bench"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(cli.__file__)))
+    assert env["PYTHONPATH"].split(os.pathsep)[0] == root
+
+
 def test_mount_dispatch_builds_what_the_reference_builds():
     """`cli mount` hands fuse_adapter.mount the same filer store, master,
     mount point and MountOptions in the port as in the reference (each

@@ -137,7 +137,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
                 "seaweedfs_tpu_torch.notification.queues",
                 "seaweedfs_tpu_torch.notification.brokers",
                 "seaweedfs_tpu_torch.server.filer_server",
-                *GATEWAY_MODULES, *MOUNT_MODULES):
+                *GATEWAY_MODULES, *MOUNT_MODULES, *BENCH_MODULES):
         assert mod in report["modules"], mod
     # a gated store fails on its own client library only
     for mod, missing in report["gated"].items():
@@ -241,6 +241,72 @@ def test_mount_module_alone_loads_no_jax(module):
     test_control_plane_module_alone_loads_no_jax(module)
 
 
+# the benchmark entry points
+BENCH_MODULES = ("seaweedfs_tpu_torch.tools.bench",
+                 "seaweedfs_tpu_torch.tools.bench_ec",
+                 "seaweedfs_tpu_torch.tools.bench_pipeline",
+                 "seaweedfs_tpu_torch.tools.bench_needle")
+
+
+@pytest.mark.parametrize("module", BENCH_MODULES)
+def test_bench_module_alone_loads_no_jax(module):
+    """Each benchmark entry point of the port, imported alone in a fresh
+    process, loads no jax and nothing of seaweedfs_tpu."""
+    test_control_plane_module_alone_loads_no_jax(module)
+
+
+def _imported(log: str) -> list[str]:
+    return [line.rsplit("|", 1)[-1].strip() for line in log.splitlines()
+            if line.startswith("import time:")]
+
+
+def test_bench_ec_child_loads_no_jax():
+    """bench-ec's child process (`python -m seaweedfs_tpu_torch.tools.bench
+    --child`), which runs every stage on the plain versions here, imports
+    no jax and nothing of seaweedfs_tpu, nor anything of the repo's
+    tools/ package: -X importtime lists every module it imports."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(SWTPU_TORCH_EC_BACKEND="cpu", OMP_NUM_THREADS="1",
+               SWTPU_TORCH_BENCH_BYTES=str(128 << 10),
+               SWTPU_TORCH_BENCH_CHILD_S="150")
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "seaweedfs_tpu_torch.tools.bench", "--child"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    stages = [json.loads(ln).get("stage") for ln in proc.stdout.splitlines()]
+    assert {"oracle", "batched", "crc", "done"} <= set(stages)
+    imported = _imported(proc.stderr)
+    for mod in ("seaweedfs_tpu_torch.ops.gf256_mxu",
+                "seaweedfs_tpu_torch.ops.crc32c_cuda",
+                "seaweedfs_tpu_torch.parallel.mesh",
+                "seaweedfs_tpu_torch.util.crc32c"):
+        assert mod in imported, mod
+    assert [m for m in imported
+            if _forbidden(m) or m.split(".")[0] == "tools"] == []
+
+
+def test_bench_needle_daemons_load_no_jax(monkeypatch, tmp_path):
+    """bench_needle's daemons (the port's master and volume server)
+    import no jax and nothing of seaweedfs_tpu: PYTHONPROFILEIMPORTTIME=1
+    puts every import in their logs."""
+    from seaweedfs_tpu_torch.tools import bench_needle
+    from test_torch_tools import free_port_block
+
+    monkeypatch.setenv("SWTPU_TORCH_EC_BACKEND", "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPROFILEIMPORTTIME", "1")
+    row = bench_needle.bench_one(1, 50, 512, 4,
+                                 base_port=free_port_block(2),
+                                 tmp=str(tmp_path))
+    assert row["write_rps"] > 0
+    for log in ("proc0.log", "proc1.log"):
+        with open(tmp_path / log) as f:
+            imported = _imported(f.read())
+        assert "seaweedfs_tpu_torch.security.tls" in imported, log
+        assert [m for m in imported if _forbidden(m)] == [], log
+
+
 def test_every_filer_store_loads_no_jax(tmp_path):
     """create_store of every store name the reference knows (the gated
     ones fail with "unknown filer store" where their client library is
@@ -279,11 +345,11 @@ def test_every_filer_store_loads_no_jax(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["master", "shell", "filer", "filer.copy",
                                  "s3", "webdav", "server",
-                                 "filer.replicate", "mount"])
+                                 "filer.replicate", "mount", "bench-ec"])
 def test_cli_master_and_shell_entry_points_load_no_jax(cmd):
     """`python -m seaweedfs_tpu_torch.cli master -h` (and the same for
     `shell`, `filer`, `filer.copy`, `s3`, `webdav`, `server`,
-    `filer.replicate` and `mount`) imports no jax and nothing of seaweedfs_tpu: -X
+    `filer.replicate`, `mount` and `bench-ec`) imports no jax and nothing of seaweedfs_tpu: -X
     importtime lists every module the command's process imports."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
