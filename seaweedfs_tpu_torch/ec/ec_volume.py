@@ -24,16 +24,17 @@ from __future__ import annotations
 import os
 
 import threading
+from contextlib import contextmanager
 from typing import Callable
 
 from ..storage import types as t
 from ..storage.needle import CrcMismatch, Needle, NeedleError
 from ..storage.needle_map import SortedFileNeedleMap
-from ..util import failpoints, glog
+from ..util import failpoints, glog, tracing
 from . import gf
 from .locate import (LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, Interval,
                      locate_data)
-from .pipeline import get_encoder, to_ext, _transform_buffers
+from .pipeline import get_encoder, on_card, to_ext, _transform_buffers
 
 import numpy as np
 
@@ -256,7 +257,8 @@ class EcVolume:
         if f is not None:
             failpoints.sync_fail("ec.shard_read")
             # pread: position-independent, safe under concurrent readers
-            data = os.pread(f.fileno(), size, offset)
+            with tracing.start("ec", "pread"):
+                data = os.pread(f.fileno(), size, offset)
             if len(data) == size:
                 return data, (sid,), False
             return data + b"\x00" * (size - len(data)), (sid,), False
@@ -320,7 +322,6 @@ class EcVolume:
 
         Returns the bytes and the survivor rows decoded ((), when the
         recover cache served them)."""
-        from ..util import tracing
         rc = self._recover_cache
         key = (self.vid, want_sid, offset, size)
         gen = None
@@ -342,100 +343,105 @@ class EcVolume:
             failpoints.sync_fail("ec.recover.read")
             plan = self._repair_plan(want_sid)
             k = gf.DATA_SHARDS
-            got: dict[int, bytes] = {}
-            stale_local: list[int] = []
-            for sid in plan.local:
-                if len(got) >= k:
-                    break
-                if sid == want_sid:
-                    continue
-                f = self.shards.get(sid)
-                if f is None:
-                    # unmounted between planning and this read: the
-                    # shard may now live on a peer — demote it to a
-                    # remote candidate instead of dropping the row
-                    stale_local.append(sid)
-                    continue
-                raw = os.pread(f.fileno(), size, offset)
-                got[sid] = raw + b"\x00" * (size - len(raw))
-            n_local = len(got)
-            # cached survivor intervals: bytes a previous recover of
-            # ANOTHER lost shard already moved — free the second time
-            if rc is not None and len(got) < k:
-                for sid in plan.remote:
+            # the survivors' reads: local, cached, fetched
+            with tracing.start("ec", "gather") as gsp:
+                got: dict[int, bytes] = {}
+                stale_local: list[int] = []
+                for sid in plan.local:
                     if len(got) >= k:
                         break
                     if sid == want_sid:
                         continue
-                    b = rc.get((self.vid, sid, offset, size))
-                    if b is not None and len(b) == size:
-                        got[sid] = b
-            n_cached = len(got) - n_local
-            fetched: dict[int, bytes] = {}
-            want_remote = [sid for sid in plan.remote
-                           if sid != want_sid and sid not in got] \
-                + stale_local
-            refreshed = False
-
-            def gather(cands: list[int], need: int) -> None:
-                if need <= 0 or not cands or \
-                        self.fetch_remote_batch is None:
-                    return
-                # only as many intervals as the decode still needs:
-                # over-asking would move (and pread) extra repair
-                # bytes on every holder
-                batch = self.fetch_remote_batch(
-                    [(sid, offset, size) for sid in cands[:need]])
-                if not batch:
-                    return
-                taken = 0
-                # `need` bounds THIS call's acceptance: the retry
-                # gather after a partially-successful first batch must
-                # still be able to admit its rows (the shared dict
-                # already holds the first batch's)
-                for sid in cands:
-                    data = batch.get(sid)
-                    if data is not None and taken < need:
-                        fetched[sid] = data
-                        taken += 1
-
-            gather(want_remote, k - len(got))
-            if len(got) + len(fetched) < k and want_remote:
-                # the batch came back short: refresh the holder map
-                # ONCE, then retry the remainder as a SECOND batch —
-                # never a per-shard loop against the same stale
-                # holders for every shard in the batch. (The wired
-                # batch fetcher may itself have invalidated the map
-                # already — either way the next resolve sees the
-                # freshest state, so the retry is issued
-                # unconditionally: one batched attempt costs at most
-                # one wasted round trip, strictly cheaper than the
-                # k-shortfall per-shard singles it preempts.)
-                if self.refresh_holders is not None:
-                    try:
-                        self.refresh_holders()
-                    except Exception as e:  # noqa: BLE001 — refresh is
-                        # best-effort; the per-shard fallback still runs
-                        glog.V(1).infof("ec holder refresh vid=%d: %s",
-                                        self.vid, e)
-                    refreshed = True
-                    self.invalidate_plans()
-                gather([sid for sid in want_remote
-                        if sid not in fetched],
-                       k - len(got) - len(fetched))
-                # last resort: per-shard fetch for stragglers, against
-                # the refreshed map
-                if len(got) + len(fetched) < k \
-                        and self.fetch_remote is not None:
-                    for sid in want_remote:
-                        if sid in fetched:
-                            continue
-                        if len(got) + len(fetched) >= k:
+                    f = self.shards.get(sid)
+                    if f is None:
+                        # unmounted between planning and this read: the
+                        # shard may now live on a peer — demote it to a
+                        # remote candidate instead of dropping the row
+                        stale_local.append(sid)
+                        continue
+                    raw = os.pread(f.fileno(), size, offset)
+                    got[sid] = raw + b"\x00" * (size - len(raw))
+                n_local = len(got)
+                # cached survivor intervals: bytes a previous recover of
+                # ANOTHER lost shard already moved — free the second time
+                if rc is not None and len(got) < k:
+                    for sid in plan.remote:
+                        if len(got) >= k:
                             break
-                        data = self.fetch_remote(sid, offset, size)
-                        if data is not None:
+                        if sid == want_sid:
+                            continue
+                        b = rc.get((self.vid, sid, offset, size))
+                        if b is not None and len(b) == size:
+                            got[sid] = b
+                n_cached = len(got) - n_local
+                fetched: dict[int, bytes] = {}
+                want_remote = [sid for sid in plan.remote
+                               if sid != want_sid and sid not in got] \
+                    + stale_local
+                refreshed = False
+
+                def gather(cands: list[int], need: int) -> None:
+                    if need <= 0 or not cands or \
+                            self.fetch_remote_batch is None:
+                        return
+                    # only as many intervals as the decode still needs:
+                    # over-asking would move (and pread) extra repair
+                    # bytes on every holder
+                    batch = self.fetch_remote_batch(
+                        [(sid, offset, size) for sid in cands[:need]])
+                    if not batch:
+                        return
+                    taken = 0
+                    # `need` bounds THIS call's acceptance: the retry
+                    # gather after a partially-successful first batch must
+                    # still be able to admit its rows (the shared dict
+                    # already holds the first batch's)
+                    for sid in cands:
+                        data = batch.get(sid)
+                        if data is not None and taken < need:
                             fetched[sid] = data
-            got.update(fetched)
+                            taken += 1
+
+                gather(want_remote, k - len(got))
+                if len(got) + len(fetched) < k and want_remote:
+                    # the batch came back short: refresh the holder map
+                    # ONCE, then retry the remainder as a SECOND batch —
+                    # never a per-shard loop against the same stale
+                    # holders for every shard in the batch. (The wired
+                    # batch fetcher may itself have invalidated the map
+                    # already — either way the next resolve sees the
+                    # freshest state, so the retry is issued
+                    # unconditionally: one batched attempt costs at most
+                    # one wasted round trip, strictly cheaper than the
+                    # k-shortfall per-shard singles it preempts.)
+                    if self.refresh_holders is not None:
+                        try:
+                            self.refresh_holders()
+                        except Exception as e:  # noqa: BLE001 — refresh is
+                            # best-effort; the per-shard fallback still runs
+                            glog.V(1).infof("ec holder refresh vid=%d: %s",
+                                            self.vid, e)
+                        refreshed = True
+                        self.invalidate_plans()
+                    gather([sid for sid in want_remote
+                            if sid not in fetched],
+                           k - len(got) - len(fetched))
+                    # last resort: per-shard fetch for stragglers, against
+                    # the refreshed map
+                    if len(got) + len(fetched) < k \
+                            and self.fetch_remote is not None:
+                        for sid in want_remote:
+                            if sid in fetched:
+                                continue
+                            if len(got) + len(fetched) >= k:
+                                break
+                            data = self.fetch_remote(sid, offset, size)
+                            if data is not None:
+                                fetched[sid] = data
+                got.update(fetched)
+                gsp.set("local", n_local)
+                gsp.set("cached", n_cached)
+                gsp.set("fetched", len(fetched))
             bufs: list[np.ndarray] = []
             rows: list[int] = []
             for sid in sorted(got):
@@ -456,7 +462,9 @@ class EcVolume:
                 self.vid, want_sid, offset, size, rows,
                 n_local, n_cached, len(fetched))
             coeff = gf.cached_shard_rows((want_sid,), tuple(rows))
-            out = _transform_buffers(self.encoder(size), coeff, bufs)
+            encoder = self.encoder(size)
+            sp.set("path", "card" if on_card(encoder) else "host")
+            out = _transform_buffers(encoder, coeff, bufs)
             data = np.asarray(out[0], np.uint8).tobytes()
             sp.nbytes = len(data)
             if rc is not None:
@@ -611,12 +619,23 @@ class EcVolume:
                 "remote_rows": stats.get("remote_rows", 0),
                 "used_recovered_rows": len(missing) > 0}
 
+    @contextmanager
+    def _locked(self):
+        """Hold the volume's lock; under a traced request the wait for it
+        is an `ec.lock_wait` span."""
+        with tracing.start("ec", "lock_wait"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     def read_needle(self, needle_id: int, cookie: int | None = None) -> Needle:
         """Locate via .ecx, gather stripe intervals, parse + CRC-check
         (ReadEcShardNeedle, store_ec.go:119-153). A CRC mismatch is
         answered by _reread_without_culprit, which serves the needle
         only where exactly one survivor left out makes it pass."""
-        with self._lock:
+        with self._locked():
             offset, size = self.find_needle(needle_id)
             if size == t.TOMBSTONE_FILE_SIZE:
                 raise NotFoundError(f"needle {needle_id:x} deleted")
@@ -690,11 +709,11 @@ class EcVolume:
         and the first decode do none of this."""
         import time
 
-        from ..util import events, tracing
+        from ..util import events
         k = gf.DATA_SHARDS
         rc = self._recover_cache
-        with self._lock, tracing.start("ec", "reread", vid=self.vid,
-                                       needle=needle_id) as sp:
+        with self._locked(), tracing.start("ec", "reread", vid=self.vid,
+                                           needle=needle_id) as sp:
             self.rereads += 1
             gen = (rc.generation(self.vid)
                    if rc is not None and hasattr(rc, "generation") else None)

@@ -18,12 +18,14 @@ without a GPU. Nothing falls back from the card to the CPU.
 from __future__ import annotations
 
 import functools
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..ops import gf256_mxu
 from ..ops.gf256_cuda import gf256_transform
+from ..util import tracing
 from . import gf
 
 
@@ -126,24 +128,36 @@ class TorchEncoder:
         in and out with non_blocking copies on the current stream, and an
         event is recorded after the copy out. The thunk waits on that
         event only, so it may run on another thread while this one
-        launches the next block. `mxu` is transform_batch's."""
-        block = np.ascontiguousarray(block, dtype=np.uint8)
-        if self.device.type != "cuda":
+        launches the next block. `mxu` is transform_batch's.
+
+        Under a traced request the CUDA path records its host copies and
+        pinned allocations as `ec.stage` spans, the two copy enqueues as
+        `ec.h2d` and `ec.d2h`, and the thunk's wait as `ec.wait`."""
+        card = self.device.type == "cuda"
+        with tracing.start("ec", "stage") if card else nullcontext():
+            block = np.ascontiguousarray(block, dtype=np.uint8)
+        if not card:
             out = self.transform_batch(coeff, block, mxu)
             return lambda: out.numpy()
         stream = torch.cuda.current_stream(self.device)
-        staged = torch.from_numpy(block).pin_memory()
-        out = self.transform_batch(
-            coeff, staged.to(self.device, non_blocking=True), mxu)
-        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+        with tracing.start("ec", "stage"):
+            staged = torch.from_numpy(block).pin_memory()
+        with tracing.start("ec", "h2d"):
+            dev_block = staged.to(self.device, non_blocking=True)
+        out = self.transform_batch(coeff, dev_block, mxu)
+        with tracing.start("ec", "stage"):
+            host = torch.empty(out.shape, dtype=torch.uint8,
+                               pin_memory=True)
+        with tracing.start("ec", "d2h"):
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
 
         # the default argument holds the pinned input until the thunk runs
         def thunk(_staged=staged):
-            done.synchronize()
-            return host.numpy()
+            with tracing.start("ec", "wait"):
+                done.synchronize()
+                return host.numpy()
 
         return thunk
 

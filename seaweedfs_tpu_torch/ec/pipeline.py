@@ -24,12 +24,14 @@ import os
 import queue
 import threading
 import time
+from contextlib import nullcontext
 
 import numpy as np
 
 from ..storage import types as t
 from ..storage.needle_map import pack_entry, walk_index_blob, \
     write_sorted_index
+from ..util import tracing
 from . import gf
 from .batch import (DEFAULT_BATCH_WINDOWS, add_stat, clamp_batch_windows,
                     transform_block_async, window_blocks)
@@ -92,7 +94,10 @@ def _transform_buffers_async(encoder, coeff: np.ndarray,
     if not isinstance(encoder, TorchEncoder):
         raise TypeError(f"the port's pipeline runs a TorchEncoder or a "
                         f"CpuEncoder, got {type(encoder).__name__}")
-    block = np.stack([np.asarray(b, np.uint8) for b in buffers])[None]
+    # the host copy of a card recover's survivors, an `ec.stage` span
+    with tracing.start("ec", "stage") if on_card(encoder) \
+            else nullcontext():
+        block = np.stack([np.asarray(b, np.uint8) for b in buffers])[None]
     thunk = encoder.transform_async(
         coeff, block, mxu=os.environ.get(METHOD_ENV) == "mxu")
     return lambda: list(thunk()[0])
@@ -128,12 +133,18 @@ def _iter_row_batches(dat_size: int, large_block: int, small_block: int,
         remaining -= small_block * gf.DATA_SHARDS
 
 
+def on_card(encoder) -> bool:
+    """Whether `encoder` transforms on the card: a CUDA TorchEncoder,
+    whose launch is asynchronous."""
+    return isinstance(encoder, TorchEncoder) and \
+        encoder.device.type == "cuda"
+
+
 def _use_overlap(encoder) -> bool:
     """Thread overlap pays only when the launch is asynchronous: a CUDA
     TorchEncoder. On the CPU (the plain version, or the host CpuEncoder)
     the transform is eager, and the plain serial loop wins."""
-    return isinstance(encoder, TorchEncoder) and \
-        encoder.device.type == "cuda"
+    return on_card(encoder)
 
 
 def _run_overlapped(read_batches, launch, write_result,
