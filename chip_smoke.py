@@ -1654,9 +1654,28 @@ def lost_intervals(base: str, lost: list[int], large_block: int,
     return out
 
 
+def row_recovers(intervals: list[tuple]) -> list[tuple]:
+    """(nid, shards, shard offset, size) of each recover that reading the
+    needles of `intervals` (lost_intervals) makes, in the order it is
+    made: EcVolume.read_needle decodes all of a needle's lost intervals
+    of one shard offset and size, the whole blocks of one stripe row, in
+    one recover."""
+    out, at = [], {}
+    for nid, sid, soff, size in intervals:
+        key = (nid, soff, size)
+        if key in at:
+            i = at[key]
+            out[i] = (nid, out[i][1] + (sid,), soff, size)
+        else:
+            at[key] = len(out)
+            out.append((nid, (sid,), soff, size))
+    return out
+
+
 def split_at(intervals: list[tuple], threshold: int) -> tuple[int, int]:
-    """(intervals under the threshold, intervals at or above it): the
-    host CpuEncoder's recovers and the card's."""
+    """(entries under the threshold, entries at or above it), by the
+    size each ends with: of row_recovers, the host CpuEncoder's recovers
+    and the card's."""
     big = sum(1 for iv in intervals if iv[3] >= threshold)
     return len(intervals) - big, big
 
@@ -1846,13 +1865,15 @@ def phase_store(dev: torch.device, seed: int, target: int,
             os.remove(base + pl.to_ext(sid))
         ivs = lost_intervals(base, LOST, store.ec_large_block,
                              store.ec_small_block, order)
+        recs = row_recovers(ivs)
         check_cache_cold(store, specs, ivs)
-        host_n, card_n = split_at(ivs, threshold)
+        host_n, card_n = split_at(recs, threshold)
         lat_b = counted("pass B", lambda: read_pass(store, specs, order))
         expected["pass B"] = card_n
-        print(f"  pass B: {len(ivs)} intervals on lost shards {LOST}: "
-              f"{host_n} under the {threshold}-byte threshold (host "
-              f"CpuEncoder), {card_n} at or above it (the card) {tag}")
+        print(f"  pass B: {len(ivs)} intervals on lost shards {LOST} in "
+              f"{len(recs)} recovers: {host_n} under the {threshold}-byte "
+              f"threshold (host CpuEncoder), {card_n} at or above it (the "
+              f"card) {tag}")
         trace_store_reads(store, specs, order, dev, card)
 
         # -- pass C: every recover on the card
@@ -1862,7 +1883,7 @@ def phase_store(dev: torch.device, seed: int, target: int,
               and sorted(store_c.ec_volumes[STORE_VID].shards)
               == [s for s in range(gf.TOTAL_SHARDS) if s not in LOST],
               "second store did not mount the degraded EC volume")
-        recorder = RecordLaunches(sample_by_class(ivs, seed))
+        recorder = RecordLaunches(sample_by_class(recs, seed))
         encoder_torch.gf256_transform = recorder
         try:
             lat_c = counted("pass C",
@@ -1870,10 +1891,10 @@ def phase_store(dev: torch.device, seed: int, target: int,
         finally:
             encoder_torch.gf256_transform = gf256_transform
             store_c.close()
-        expected["pass C"] = len(ivs)
-        want_shapes = [(1, gf.DATA_SHARDS, iv[3]) for iv in ivs]
+        expected["pass C"] = len(recs)
+        want_shapes = [(1, gf.DATA_SHARDS, r[3]) for r in recs]
         check(recorder.shapes == want_shapes,
-              "pass C launches differ from the lost-shard intervals in "
+              "pass C launches differ from the lost-shard recovers in "
               "number, order or shape")
         max_err = 0
         for i in sorted(recorder.kept):
@@ -1883,9 +1904,11 @@ def phase_store(dev: torch.device, seed: int, target: int,
         check(max_err == 0, f"pass C recovers differ from the plain "
               f"version by {max_err}")
         sizes = sorted({recorder.kept[i][1].shape[2] for i in recorder.kept})
-        print(f"  pass C (ec_small_recover_bytes=0): {len(ivs)} launches "
-              f"at (1, 10, n), n {min(iv[3] for iv in ivs)}..."
-              f"{max(iv[3] for iv in ivs)}; {len(recorder.kept)} sampled "
+        print(f"  pass C (ec_small_recover_bytes=0): {len(recs)} launches "
+              f"at (1, 10, n), n {min(r[3] for r in recs)}..."
+              f"{max(r[3] for r in recs)}, up to "
+              f"{max(len(r[1]) for r in recs)} rows out; "
+              f"{len(recorder.kept)} sampled "
               f"launches (n in {sizes}) equal the plain version on the "
               f"card, max_abs_err {max_err} {tag}")
 
@@ -1921,7 +1944,8 @@ def phase_store(dev: torch.device, seed: int, target: int,
         shutil.rmtree(STORE_DIR, ignore_errors=True)
     return {"launches": launches, "expected": expected, "timing": timing,
             "needles": len(order), "intervals": len(ivs),
-            "split": (host_n, card_n), "max_abs_err": max_err}
+            "recovers": len(recs), "split": (host_n, card_n),
+            "max_abs_err": max_err}
 
 
 def trace_store_reads(store, specs: dict, order: list[int],
@@ -2170,7 +2194,7 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
         store.drop_cached_volume(vid)
         store.ec_recover_cache.drop_volume(vid)
         check_cache_cold(store, specs, ivs, vid)
-        host_n, card_n = split_at(ivs, ev.small_recover_bytes)
+        host_n, card_n = split_at(row_recovers(ivs), ev.small_recover_bytes)
         lat_b = await counted("pass B", read_all(order, specs))
         expected["pass B"] = card_n
         print(f"  pass B: {len(ivs)} intervals on lost shards {LOST}: "
@@ -2379,7 +2403,7 @@ async def _drive_mxu_server(dev: torch.device, seed: int, target: int,
         ivs = lost_intervals(base, LOST, store.ec_large_block,
                              store.ec_small_block, order)
         check_cache_cold(store, specs, ivs, vid)
-        host_n, card_n = split_at(ivs, ev.small_recover_bytes)
+        host_n, card_n = split_at(row_recovers(ivs), ev.small_recover_bytes)
 
         async def read_all() -> list[float]:
             lat = []
@@ -2791,10 +2815,14 @@ def cluster_prediction(seed: int, target: int,
         dat_size, large, small, 8 * MIB))
     recovers = 0
     for _, off, size in layout:
+        rows = set()
         for iv in locate_data(large, small, gf.DATA_SHARDS * shard, off,
                               st.actual_size(size, st.CURRENT_VERSION)):
-            sid, _ = iv.to_shard_and_offset(large, small)
-            recovers += sid in lost and iv.size >= MIB
+            sid, soff = iv.to_shard_and_offset(large, small)
+            if sid in lost and iv.size >= MIB:
+                rows.add(soff)
+        # one recover a stripe row (EcVolume.read_needle)
+        recovers += len(rows)
     rebuild = rebuild_launches(shard)
     scrub_batch = ecb.clamp_batch_windows(
         ecb.DEFAULT_BATCH_WINDOWS, VERIFY_WINDOW, gf.TOTAL_SHARDS,
@@ -3096,7 +3124,7 @@ async def _drive_cluster(dev: torch.device, seed: int, target: int,
         for vs in servers:
             check_cache_cold(vs.store, dict.fromkeys(nids), ivs, vid)
         threshold = other.store.ec_volumes[vid].small_recover_bytes
-        host_n, card_n = split_at(ivs, threshold)
+        host_n, card_n = split_at(row_recovers(ivs), threshold)
         lat_b = await counted("pass B", read_all(volume))
         expected["pass B"] = card_n
         print(f"  pass B: shards {lost} lost on {victim.url}, "
@@ -3365,14 +3393,15 @@ def chunk_record_size(n: int) -> int:
                           st.CURRENT_VERSION)
 
 
-def full_blocks_lost(offset: int, record: int, lost: tuple) -> int:
-    """Small blocks (1 MiB, shard = block index mod 10) that a record at
-    `offset` covers whole and that lie on a `lost` shard: its recovers at
-    or above the 1 MiB -ec.smallrecover default."""
+def full_block_rows_lost(offset: int, record: int, lost: tuple) -> int:
+    """Stripe rows in which a record at `offset` covers whole a small
+    block (1 MiB, shard = block index mod 10) of a `lost` shard: its
+    recovers at or above the 1 MiB -ec.smallrecover default, since a read
+    decodes the lost whole blocks of one row in one recover."""
     first = -(-offset // pl.SMALL_BLOCK_SIZE)
     last = (offset + record) // pl.SMALL_BLOCK_SIZE
-    return sum(1 for b in range(first, last)
-               if b % gf.DATA_SHARDS in lost)
+    return len({b // gf.DATA_SHARDS for b in range(first, last)
+                if b % gf.DATA_SHARDS in lost})
 
 
 def record_recover_bounds(record: int, lost: tuple) -> tuple[int, int]:
@@ -3385,7 +3414,7 @@ def record_recover_bounds(record: int, lost: tuple) -> tuple[int, int]:
              for base in (j * pl.SMALL_BLOCK_SIZE,
                           j * pl.SMALL_BLOCK_SIZE - record)
              for d in (-8, 0, 8)}
-    counts = [full_blocks_lost(o, record, lost) for o in cands]
+    counts = [full_block_rows_lost(o, record, lost) for o in cands]
     return min(counts), max(counts)
 
 
@@ -3398,11 +3427,11 @@ def filer_prediction(seed: int, target: int,
     .dat size is the sum of the chunk records whatever their order:
     ec.encode's launches are its row batches, 8 a launch. The read passes
     before ec.encode and the listing, restart and shell steps launch
-    nothing. The degraded passes recover each lost whole block of a
-    chunk read; filer.copy uploads 8 files at a time, so a chunk's offset
-    in the volume (and with it which blocks it covers whole) is not fixed
-    by the seed, and those steps get the least and the most over every
-    offset, (lo, hi)."""
+    nothing. The degraded passes recover each stripe row of lost whole
+    blocks of a chunk read, once; filer.copy uploads 8 files at a time,
+    so a chunk's offset in the volume (and with it which blocks it covers
+    whole) is not fixed by the seed, and those steps get the least and
+    the most over every offset, (lo, hi)."""
     from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
     _, files = filer_tree(seed, target)
     chunks = [chunk_sizes(size, chunk) for _, size in files]
@@ -3729,7 +3758,7 @@ async def _drive_filer(dev: torch.device, seed: int, target: int,
         check(not any(cc.contains(fid) for fid in nid_of),
               "the restarted filer's chunk cache is not cold")
         threshold = holder.store.ec_volumes[vid].small_recover_bytes
-        big = Counter(iv[0] for iv in ivs if iv[3] >= threshold)
+        big = Counter(r[0] for r in row_recovers(ivs) if r[3] >= threshold)
         lat_b = await counted("GET degraded", read_all())
         expected["GET degraded"] = sum(big.values())
 
@@ -3748,7 +3777,7 @@ async def _drive_filer(dev: torch.device, seed: int, target: int,
         expected["Range degraded"] = sum(
             big[nid_of[fid]] for i, start, end in ranges
             for fid in fids[files[i][0]][start // chunk:end // chunk + 1])
-        host_n, card_n = split_at(ivs, threshold)
+        host_n, card_n = split_at(row_recovers(ivs), threshold)
         print(f"  degraded: shards {lost} lost on {owner.url}, {len(ivs)} "
               f"intervals on them: {host_n} under the {threshold}-byte "
               f"threshold (host), {card_n} at or above it (K1); every file "
@@ -3893,9 +3922,10 @@ def gateway_prediction(seed: int, target: int, *, part: int = S3_PART,
     master keeps its 30,000 MB limit), whose .dat size is the sum of the
     chunk records in any order: each ec.encode is exact. The writes and
     the intact reads launch nothing. The degraded passes recover each
-    lost whole block of every chunk they read, and uploads run 8 at a
-    time, so a chunk's offset in its volume is not fixed by the seed:
-    those steps get the least and the most over every offset."""
+    stripe row of lost whole blocks of every chunk they read once, and
+    uploads run 8 at a time, so a chunk's offset in its volume is not
+    fixed by the seed: those steps get the least and the most over every
+    offset."""
     from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
     dirs, files = filer_tree(seed, target)
     gw = [s3_chunks(size, part) for _, size in files]
@@ -4595,7 +4625,8 @@ async def _drive_gateway(dev, seed, target, card, part, signed,
             ivs = lost_intervals(bases[c], lost, vs.store.ec_large_block,
                                  vs.store.ec_small_block, nids)
             ivs_all[c] = ivs
-            big[c] = Counter(iv[0] for iv in ivs if iv[3] >= threshold)
+            big[c] = Counter(r[0] for r in row_recovers(ivs)
+                             if r[3] >= threshold)
 
         def drop_caches() -> None:
             for c in colls:
@@ -4673,7 +4704,7 @@ async def _drive_gateway(dev, seed, target, card, part, signed,
         for step in GATEWAY_QUIET_STEPS:
             expected[step] = 0
         for c in colls:
-            host_n, card_n = split_at(ivs_all[c], threshold)
+            host_n, card_n = split_at(row_recovers(ivs_all[c]), threshold)
             print(f"  degraded {c}: shards {lost} lost, {len(ivs_all[c])} "
                   f"intervals on them, {host_n} under the {threshold}-byte "
                   f"threshold (host), {card_n} at or above it (K1) {tag}")
@@ -4976,15 +5007,16 @@ def mount_prediction(seed: int, target: int,
     """Phase 14's K1 launches per step, reckoned on any host from the
     seed alone. The files go in one at a time, so every chunk's offset
     in the collection's one volume is known (mount_layout), and so are
-    the whole 1 MiB blocks on lost shards that each chunk record covers
-    (full_blocks_lost): the degraded pass recovers each once, since the
+    the stripe rows of whole 1 MiB blocks on lost shards that each chunk
+    record covers (full_block_rows_lost): the degraded pass recovers each
+    row once, since the
     needle cache holds a chunk between the READs of it; each cold READ,
     with the caches emptied first, recovers its chunk's whole. The
     ec.encode count is the .dat's row batches."""
     plan = mount_plan(seed, target)
     layout = mount_layout(seed, target, chunk)
     dat_size = layout[-1][2] + layout[-1][3]
-    lost_of = {(i, j): full_blocks_lost(off, rec, lost)
+    lost_of = {(i, j): full_block_rows_lost(off, rec, lost)
                for i, j, off, rec in layout if j >= 0}
     read = [i for i in range(len(plan["files"])) if i != plan["gone"]]
     largest = plan["largest"]
@@ -5304,7 +5336,7 @@ async def _drive_mount(dev: torch.device, seed: int, target: int,
             check_cache_cold(vs.store, dict.fromkeys(nid_of.values()),
                              ivs, vid)
         threshold = holder.store.ec_volumes[vid].small_recover_bytes
-        big = Counter(iv[0] for iv in ivs if iv[3] >= threshold)
+        big = Counter(r[0] for r in row_recovers(ivs) if r[3] >= threshold)
 
         # -- 8. every file again through READs, degraded
         lat_b: list[float] = []
@@ -5312,7 +5344,7 @@ async def _drive_mount(dev: torch.device, seed: int, target: int,
             read_file(rel, i, lat_b) for i, rel in enumerate(paths)
             if i != gone])
         expected["READ degraded"] = sum(big.values())
-        host_n, card_n = split_at(ivs, threshold)
+        host_n, card_n = split_at(row_recovers(ivs), threshold)
 
         # -- 9. one READ at the start of each chunk of the largest file,
         # the servers' caches emptied before each
@@ -5630,8 +5662,8 @@ def rot_plan(seed: int, target: int) -> dict:
     CRC and are retried: each is decoded once more per survivor it read
     (10 per interval recovered from 10 survivors, 1 per interval read
     straight from a shard), and reported with the flipped shard. K1's
-    launches: /admin/ec/generate's ceil(W/8); one per lost interval of
-    every needle and the retries in step (a); in each rebuild, ceil(W/8)
+    launches: /admin/ec/generate's ceil(W/8); one per (shard offset,
+    size) of every needle's lost intervals and the retries in step (a); in each rebuild, ceil(W/8)
     and one per hypothesis in the two windows that disagree, 12 of them
     with 12 inputs and 11 with 11."""
     from seaweedfs_tpu_torch.ec.locate import locate_data
@@ -5659,11 +5691,14 @@ def rot_plan(seed: int, target: int) -> dict:
                **{n: ROT_PARITY_SHARD for n in own12}}
     reads = 0
     for nid, off, size, _ in layout:
-        sids = [iv.to_shard_and_offset(large, small)[0] for iv in locate_data(
-            large, small, gf.DATA_SHARDS * shard, off,
-            st.actual_size(size, st.CURRENT_VERSION))]
+        ivs = [iv.to_shard_and_offset(large, small) + (iv.size,)
+               for iv in locate_data(
+                   large, small, gf.DATA_SHARDS * shard, off,
+                   st.actual_size(size, st.CURRENT_VERSION))]
+        sids = [sid for sid, _, _ in ivs]
         lost = sum(sid in ROT_LOST for sid in sids)
-        reads += lost
+        # one recover a (shard offset, size): a stripe row's lost blocks
+        reads += len({(soff, n) for sid, soff, n in ivs if sid in ROT_LOST})
         if nid in culprit:
             reads += gf.DATA_SHARDS * lost + len(sids) - lost
     rebuild = rebuild_launches(shard)

@@ -39,6 +39,15 @@ from .pipeline import get_encoder, on_card, to_ext, _transform_buffers
 import numpy as np
 
 
+def _count_recover(path: str, rows: int) -> None:
+    """SeaweedFS_ec_recovers_total and SeaweedFS_ec_recover_rows_total,
+    by the path the transform took: their ratio is rows per recover."""
+    from ..stats import metrics
+    if metrics.HAVE_PROMETHEUS:
+        metrics.EC_RECOVERS.labels(path).inc()
+        metrics.EC_RECOVER_ROWS.labels(path).inc(rows)
+
+
 class EcVolumeError(Exception):
     pass
 
@@ -187,6 +196,9 @@ class EcVolume:
                                         writable=True)
         self._ecj = open(self.base_name + ".ecj", "ab")
         self._lock = threading.RLock()
+        # read_needle's row groups on the thread that reads
+        # (_recover_interval_src)
+        self._rows = threading.local()
         self.shards: dict[int, object] = {}
         for sid in range(gf.TOTAL_SHARDS):
             p = self.base_name + to_ext(sid)
@@ -253,6 +265,16 @@ class EcVolume:
         (bytes, the shard rows they were read or decoded from, whether
         they were decoded). A recover served from the recover cache
         names no rows: those bytes passed a needle CRC before."""
+        data = self._read_direct(sid, offset, size)
+        if data is not None:
+            return data, (sid,), False
+        data, rows = self._recover_interval_src(sid, offset, size)
+        return data, rows, True
+
+    def _read_direct(self, sid: int, offset: int, size: int
+                     ) -> "bytes | None":
+        """One interval from its own shard: a pread of the local file,
+        else fetch_remote; None where neither has it."""
         f = self.shards.get(sid)
         if f is not None:
             failpoints.sync_fail("ec.shard_read")
@@ -260,14 +282,11 @@ class EcVolume:
             with tracing.start("ec", "pread"):
                 data = os.pread(f.fileno(), size, offset)
             if len(data) == size:
-                return data, (sid,), False
-            return data + b"\x00" * (size - len(data)), (sid,), False
+                return data
+            return data + b"\x00" * (size - len(data))
         if self.fetch_remote is not None:
-            data = self.fetch_remote(sid, offset, size)
-            if data is not None:
-                return data, (sid,), False
-        data, rows = self._recover_interval_src(sid, offset, size)
-        return data, rows, True
+            return self.fetch_remote(sid, offset, size)
+        return None
 
     # ---- repair planning (minimal-fetch degraded reads) ----
 
@@ -308,40 +327,83 @@ class EcVolume:
 
     def _recover_interval_src(self, want_sid: int, offset: int, size: int
                               ) -> "tuple[bytes, tuple]":
-        """Gather k survivor rows of the same interval and decode
-        (recoverOneRemoteEcShardInterval, store_ec.go:319-373) —
-        minimal-fetch: the repair plan orders survivors local-first,
-        then cached, then remote grouped by holder, and exactly the
-        k rows the decode needs are read (arxiv 2306.10528).
+        """One lost interval: from the reconstruction cache where it is
+        hot, else decoded by _recover_rows_src.
 
-        Hot intervals of a lost shard are served from the
-        reconstruction cache; remotely fetched SURVIVOR rows are
-        cached under the same keyspace, so recovering a second lost
-        shard of the same stripe re-uses the bytes already moved
-        instead of re-fetching them.
+        read_needle reaches each of its lost intervals through here, one
+        at a time (the per-interval seam that fault injection replaces),
+        with the read's row groups set on this thread (self._rows): the
+        first interval asked for of a (offset, size) takes the read's
+        other uncached lost intervals there into the same recover, and
+        their outputs wait on the thread until they are asked for.
+        Elsewhere it is a recover of one row.
 
         Returns the bytes and the survivor rows decoded ((), when the
         recover cache served them)."""
         rc = self._recover_cache
+        ctx = self._rows
+        groups = getattr(ctx, "groups", None)
         key = (self.vid, want_sid, offset, size)
-        gen = None
+        if groups is not None and key in ctx.done:
+            return ctx.done.pop(key)
+        others = [sid for sid in (groups or {}).pop((offset, size), ())
+                  if sid != want_sid]
         if rc is not None:
             cached = rc.get(key)
             if cached is not None:
+                if others:      # the group waits for its next interval
+                    groups[(offset, size)] = others
                 return cached, ()
-            # generation snapshot BEFORE gathering (EcRecoverCache; a
-            # plain LruByteCache in tests has no generations): a
-            # re-encode/remount racing this reconstruction bumps it and
-            # the stale fill below is refused
-            if hasattr(rc, "generation"):
-                gen = rc.generation(self.vid)
+        want = [want_sid]
+        for sid in others:
+            other = (self.vid, sid, offset, size)
+            cached = rc.get(other) if rc is not None else None
+            if cached is not None:
+                ctx.done[other] = (cached, ())
+            else:
+                want.append(sid)
+        outs, rows = self._recover_rows_src(tuple(want), offset, size)
+        for sid, data in zip(want[1:], outs[1:]):
+            ctx.done[(self.vid, sid, offset, size)] = (data, rows)
+        return outs[0], rows
+
+    def _recover_rows_src(self, want_sids: tuple, offset: int, size: int
+                          ) -> "tuple[list[bytes], tuple]":
+        """Gather k survivor rows of one interval and decode every lost
+        shard in `want_sids` at that same (offset, size) from them in
+        one transform (recoverOneRemoteEcShardInterval,
+        store_ec.go:319-373, for r rows at once) — minimal-fetch: the
+        repair plan orders survivors local-first, then cached, then
+        remote grouped by holder, and exactly the k rows the decode
+        needs are read (arxiv 2306.10528). No wanted shard is a
+        survivor. The host-or-card choice follows the interval's size,
+        not the r x size bytes decoded.
+
+        Each decoded interval goes into the reconstruction cache under
+        its own key; remotely fetched SURVIVOR rows are cached under the
+        same keyspace, so recovering another lost shard of the same
+        stripe later re-uses the bytes already moved instead of
+        re-fetching them.
+
+        Returns one output per wanted shard, in `want_sids` order, and
+        the survivor rows decoded."""
+        rc = self._recover_cache
+        wanted = set(want_sids)
+        gen = None
+        # generation snapshot BEFORE gathering (EcRecoverCache; a plain
+        # LruByteCache in tests has no generations): a re-encode/remount
+        # racing this reconstruction bumps it and the stale fills below
+        # are refused
+        if rc is not None and hasattr(rc, "generation"):
+            gen = rc.generation(self.vid)
         # traced as its own span: the GF(256) gather+decode is the
         # dominant degraded-read cost (arxiv 2306.10528) and must be
         # attributable per request, not only in aggregate
         with tracing.start("ec", "recover", vid=self.vid,
-                           shard=want_sid) as sp:
+                           want=list(want_sids),
+                           rows=len(want_sids)) as sp:
             failpoints.sync_fail("ec.recover.read")
-            plan = self._repair_plan(want_sid)
+            plan = self._repair_plan(want_sids[0])
             k = gf.DATA_SHARDS
             # the survivors' reads: local, cached, fetched
             with tracing.start("ec", "gather") as gsp:
@@ -350,7 +412,7 @@ class EcVolume:
                 for sid in plan.local:
                     if len(got) >= k:
                         break
-                    if sid == want_sid:
+                    if sid in wanted:
                         continue
                     f = self.shards.get(sid)
                     if f is None:
@@ -368,7 +430,7 @@ class EcVolume:
                     for sid in plan.remote:
                         if len(got) >= k:
                             break
-                        if sid == want_sid:
+                        if sid in wanted:
                             continue
                         b = rc.get((self.vid, sid, offset, size))
                         if b is not None and len(b) == size:
@@ -376,7 +438,7 @@ class EcVolume:
                 n_cached = len(got) - n_local
                 fetched: dict[int, bytes] = {}
                 want_remote = [sid for sid in plan.remote
-                               if sid != want_sid and sid not in got] \
+                               if sid not in wanted and sid not in got] \
                     + stale_local
                 refreshed = False
 
@@ -454,22 +516,26 @@ class EcVolume:
                 sp.event("holder_refresh")
             if len(rows) < k:
                 raise EcVolumeError(
-                    f"cannot recover shard {want_sid}: only {len(rows)} "
-                    f"sources available")
+                    f"cannot recover shards {list(want_sids)}: only "
+                    f"{len(rows)} sources available")
             glog.V(3).infof(
-                "ec recover vid=%d shard=%d off=%d size=%d from %s "
+                "ec recover vid=%d shards=%s off=%d size=%d from %s "
                 "(local=%d cached=%d fetched=%d)",
-                self.vid, want_sid, offset, size, rows,
+                self.vid, list(want_sids), offset, size, rows,
                 n_local, n_cached, len(fetched))
-            coeff = gf.cached_shard_rows((want_sid,), tuple(rows))
+            coeff = gf.cached_shard_rows(tuple(want_sids), tuple(rows))
             encoder = self.encoder(size)
-            sp.set("path", "card" if on_card(encoder) else "host")
+            path = "card" if on_card(encoder) else "host"
+            sp.set("path", path)
             out = _transform_buffers(encoder, coeff, bufs)
-            data = np.asarray(out[0], np.uint8).tobytes()
-            sp.nbytes = len(data)
+            datas = [np.asarray(o, np.uint8).tobytes() for o in out]
+            sp.nbytes = len(want_sids) * size
+            _count_recover(path, len(want_sids))
             if rc is not None:
+                keys = [(self.vid, sid, offset, size) for sid in want_sids]
                 if gen is not None:
-                    rc.put_fenced(key, data, gen)
+                    for key, data in zip(keys, datas):
+                        rc.put_fenced(key, data, gen)
                     # survivor rows that moved over the network are
                     # worth keeping too: a follow-up recover of a
                     # DIFFERENT lost shard of this stripe reuses them
@@ -479,10 +545,11 @@ class EcVolume:
                         rc.put_fenced((self.vid, sid, offset, size),
                                       b, gen)
                 else:
-                    rc.put(key, data)
+                    for key, data in zip(keys, datas):
+                        rc.put(key, data)
                     for sid, b in fetched.items():
                         rc.put((self.vid, sid, offset, size), b)
-            return data, tuple(rows)
+            return datas, tuple(rows)
 
     def read_window_block(self, offset: int, count: int, size: int,
                           strict: bool = False,
@@ -642,14 +709,30 @@ class EcVolume:
             record_len = t.actual_size(size, self.version)
             intervals = locate_data(self.large_block, self.small_block,
                                     self.dat_size, offset, record_len)
+            # first pass, in interval order: an intact shard's pread or a
+            # peer's bytes, else pending, grouped by (shard offset, size):
+            # lost intervals of one stripe row share their survivors
             parts, reads = [], []
+            groups: dict[tuple, list[int]] = {}
             for iv in intervals:
                 sid, soff = iv.to_shard_and_offset(self.large_block,
                                                    self.small_block)
-                data, rows, decoded = self._read_interval_src(sid, soff,
-                                                              iv.size)
+                data = self._read_direct(sid, soff, iv.size)
+                if data is None:
+                    groups.setdefault((soff, iv.size), []).append(sid)
                 parts.append(data)
-                reads.append((sid, soff, iv.size, rows, decoded))
+                reads.append((sid, soff, iv.size, (sid,), False))
+            # second pass, in interval order: the first lost interval of
+            # each group recovers the group's uncached ones at once
+            self._rows.groups, self._rows.done = groups, {}
+            try:
+                for i, (sid, soff, n, _, _) in enumerate(reads):
+                    if parts[i] is None:
+                        parts[i], rows = self._recover_interval_src(
+                            sid, soff, n)
+                        reads[i] = (sid, soff, n, rows, True)
+            finally:
+                self._rows.groups = self._rows.done = None
         try:
             n = Needle.from_bytes(b"".join(parts), self.version)
         except CrcMismatch as e:

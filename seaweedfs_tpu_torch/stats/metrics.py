@@ -80,6 +80,18 @@ if HAVE_PROMETHEUS:
     EC_THROUGHPUT = Gauge(
         "SeaweedFS_ec_encode_GBps", "last measured EC encode GB/s/chip",
         registry=REGISTRY)
+    # degraded-read recovers (ec/ec_volume.py): one a transform, by the
+    # path it took ("card" or "host"), and the lost rows they decoded;
+    # rows / recovers is how many lost intervals of one stripe row a
+    # recover decodes at once
+    EC_RECOVERS = Counter(
+        "SeaweedFS_ec_recovers_total",
+        "degraded-read recover transforms, by path",
+        ["path"], registry=REGISTRY)
+    EC_RECOVER_ROWS = Counter(
+        "SeaweedFS_ec_recover_rows_total",
+        "lost shard intervals decoded by degraded-read recovers, by path",
+        ["path"], registry=REGISTRY)
     # tiered read caches (util/chunk_cache.py): one label per cache —
     # "needle" (volume hot needles), "chunk" (filer/s3/webdav whole
     # chunks), "ec_recover" (degraded-read reconstructions),

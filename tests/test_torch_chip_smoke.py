@@ -194,8 +194,8 @@ def test_store_phase_rehearses_on_the_cpu(monkeypatch):
     version standing in for the kernel: every needle reads back equal in
     passes A, B and C and after the rebuild, verify and scrub find
     exactly the flipped window (the scrub localizes it to shard 12), and
-    pass C's recovers equal the lost-shard intervals in number, order and
-    shape. The expected launch counts follow from the geometry and the
+    pass C's recovers equal the lost-shard recovers, one a needle's lost
+    intervals of one shard offset and size, in number, order and shape. The expected launch counts follow from the geometry and the
     reports; no launch counts on the CPU, so the check of them fails
     until they are met, and fails again when one launch is missing."""
     monkeypatch.syspath_prepend(REPO)
@@ -212,7 +212,8 @@ def test_store_phase_rehearses_on_the_cpu(monkeypatch):
     host_n, card_n = seen["split"]
     assert card_n > 0 and host_n > 0
     assert exp["pass B"] == card_n
-    assert exp["pass C"] == seen["intervals"] == host_n + card_n
+    assert exp["pass C"] == seen["recovers"] == host_n + card_n
+    assert seen["recovers"] <= seen["intervals"]
     assert exp["scrub"] >= 1 + 28
     assert exp["verify"] == exp["verify flipped"] == exp["verify rebuilt"]
     assert seen["max_abs_err"] == 0
@@ -279,7 +280,9 @@ def test_lost_interval_count_matches_a_byte_walk(monkeypatch, tmp_path):
     """lost_intervals, counted from the .ecx with locate_data, agrees with
     a walk over every byte of every record in the small-block area: the
     same bytes lie on lost shards, in as many block pieces; split_at puts
-    exactly the whole-block pieces at or above a 1-block threshold."""
+    exactly the whole-block pieces at or above a 1-block threshold; and
+    row_recovers makes one recover of a needle's whole lost blocks in one
+    stripe row, and one of each partial piece."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke
     from seaweedfs_tpu_torch.storage import types as st
@@ -305,21 +308,31 @@ def test_lost_interval_count_matches_a_byte_walk(monkeypatch, tmp_path):
     ivs = chip_smoke.lost_intervals(base, lost, 16 * small, small, order)
     with open(base + ".ecx", "rb") as f:
         index = {k: (o, s) for k, o, s in walk_index_blob(f.read())}
-    want_bytes, want_pieces, whole = 0, 0, 0
+    want_bytes, want_pieces, whole, whole_rows = 0, 0, 0, 0
     for nid in order:
         off, size = index[nid]
         end = off + st.actual_size(size, st.CURRENT_VERSION)
+        rows = set()
         for block in range(off // small, (end - 1) // small + 1):
             if block % 10 in lost:
                 lo, hi = max(off, block * small), min(end, (block + 1) * small)
                 want_bytes += hi - lo
                 want_pieces += 1
                 whole += hi - lo == small
+                if hi - lo == small:
+                    rows.add(block // 10)
+        whole_rows += len(rows)
     assert sum(iv[3] for iv in ivs) == want_bytes > 0
     assert len(ivs) == want_pieces
     assert chip_smoke.split_at(ivs, small) == (want_pieces - whole, whole)
     assert whole > 0
     assert all(iv[1] in lost for iv in ivs)
+    recs = chip_smoke.row_recovers(ivs)
+    assert chip_smoke.split_at(recs, small) == (want_pieces - whole,
+                                                whole_rows)
+    assert sorted(s for r in recs for s in r[1]) == \
+        sorted(iv[1] for iv in ivs)
+    assert 0 < whole_rows <= whole
 
 
 def test_cache_cold_check_sees_needle_and_recover_entries(monkeypatch,
@@ -615,16 +628,16 @@ def test_filer_phase_rehearses_on_the_cpu(monkeypatch):
 
 def test_filer_prediction_bounds_every_offset():
     """record_recover_bounds is the least and the most of
-    full_blocks_lost over every 8-byte-aligned offset in a row, for
+    full_block_rows_lost over every 8-byte-aligned offset in a row, for
     records under, at and over a block and over several blocks."""
     import chip_smoke
     mib = chip_smoke.MIB
     lost = chip_smoke.FILER_LOST
     row = 10 * mib
     for record in (mib - 8, mib, mib + 40, 3 * mib + 24, 32 * mib + 48):
-        counts = [chip_smoke.full_blocks_lost(o, record, lost)
+        counts = [chip_smoke.full_block_rows_lost(o, record, lost)
                   for o in range(0, row, 4096)]
-        counts += [chip_smoke.full_blocks_lost(o, record, lost)
+        counts += [chip_smoke.full_block_rows_lost(o, record, lost)
                    for b in range(11) for o in
                    (b * mib - 8, b * mib, b * mib + 8,
                     b * mib - record - 8, b * mib - record,
@@ -842,7 +855,7 @@ def test_mount_reckoning_matches_a_byte_walk(mount_rehearsal):
     and tombstone lies in the collection's volume, equals the byte walk
     (walk_dat) of the .dat the rehearsal wrote, record for record; and
     mount_prediction's degraded counts follow from it through
-    full_blocks_lost."""
+    full_block_rows_lost."""
     r = mount_rehearsal
     cs, seen, layout = r["chip_smoke"], r["seen"], r["layout"]
     assert [(off, rec) for off, _, rec in seen["walk"]] == \
@@ -854,7 +867,7 @@ def test_mount_reckoning_matches_a_byte_walk(mount_rehearsal):
         plan["files"][plan["gone"]][1], cs.MOUNT_CHUNK_MB * cs.MIB))
     assert all(rec == 32 for *_, rec in tombs)
     assert r["predicted"]["READ degraded"] == sum(
-        cs.full_blocks_lost(off, rec, cs.MOUNT_LOST)
+        cs.full_block_rows_lost(off, rec, cs.MOUNT_LOST)
         for i, j, off, rec in layout if j >= 0 and i != plan["gone"])
 
 

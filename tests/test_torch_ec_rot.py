@@ -286,6 +286,71 @@ def test_two_rotten_survivors_fail_the_read(tmp_path):
     assert reports == []
 
 
+def test_a_rotten_survivor_of_a_three_row_group_is_left_out(tmp_path,
+                                                           monkeypatch):
+    """Shards {1,2,3} lost (11 survivors) under a needle that covers all
+    three whole blocks of one stripe row, so one recover decodes the
+    three from the same 10 survivors, and one byte of survivor 5 flipped
+    in that row: the needle is served, shard 5 is reported once at the
+    flipped byte, and the three intervals are cached with their true
+    bytes. The reference raises CrcMismatch on the same files."""
+    d = str(tmp_path / "v")
+    os.makedirs(d)
+    v = Volume(d, "", VID)
+    rng = random.Random(31)
+    data = rng.randbytes(9 * SB)
+    for i, n in enumerate((700, 9 * SB, 1500), 1):
+        v.write_needle(Needle(cookie=i * 7, id=i,
+                              data=data if i == 2 else rng.randbytes(n)))
+    v.close()
+    base = os.path.join(d, str(VID))
+    pl.write_ec_files(base, encoder=pl.get_encoder("cpu"), large_block=LB,
+                      small_block=SB, buffer_size=SB)
+    pl.write_sorted_file_from_idx(base)
+    truth = {}
+    for s in (1, 2, 3):
+        with open(base + pl.to_ext(s), "rb") as f:
+            truth[s] = f.read()
+    lose(base, (1, 2, 3))
+    rc = EcRecoverCache(8 << 20)
+    ev, reports = open_port(d, rc)
+    groups = []
+    real = ev._recover_rows_src
+
+    def spy(want_sids, offset, size):
+        groups.append((tuple(want_sids), offset, size))
+        return real(want_sids, offset, size)
+
+    monkeypatch.setattr(ev, "_recover_rows_src", spy)
+    try:
+        off, n = ev.find_needle(2)
+        ivs = [iv.to_shard_and_offset(LB, SB) + (iv.size,)
+               for iv in locate_data(LB, SB, K * shard_size(base), off,
+                                     t.actual_size(n, t.CURRENT_VERSION))]
+        want = (1, 2, 3)
+        ((soff, size),) = {(o, m) for sid, o, m in ivs if sid in want}
+        assert size == SB
+        x = soff + 100
+        flip(base, 5, x)
+        assert ev.read_needle(2, 14).data == data
+        assert groups == [(want, soff, size)]
+        for s in want:
+            assert rc.get((VID, s, soff, size)) == \
+                truth[s][soff:soff + size]
+    finally:
+        ev.close()
+    assert [(r["shards"], r["offset"], r["size"]) for r in reports] == \
+        [([5], x, 1)]
+    assert ev.rereads == 1
+    ref = open_ref(d)
+    try:
+        from seaweedfs_tpu.storage.needle import CrcMismatch as RefCrc
+        with pytest.raises(RefCrc):
+            ref.read_needle(2, 14)
+    finally:
+        ref.close()
+
+
 # ---------------------------------------------------------------------
 # rebuilds
 # ---------------------------------------------------------------------

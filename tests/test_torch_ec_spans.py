@@ -20,6 +20,8 @@ import pytest
 
 from seaweedfs_tpu_torch.ec import pipeline as pl
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+from seaweedfs_tpu_torch.ec.locate import locate_data
+from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.util import tracing
@@ -128,6 +130,37 @@ def test_traced_degraded_read_records_its_spans(lost_dir, ring,
         if "pread" in ops and "recover" in ops:
             both += 1
     assert both, "no needle spans an intact and a lost interval"
+
+
+def test_recover_spans_name_the_rows_they_decode(lost_dir, ring,
+                                                 monkeypatch):
+    """Each `ec.recover` span of a read is one recover of the lost
+    intervals that share a shard offset and size, in first-seen order:
+    `want` names their shards, `rows` counts them, and the span's bytes
+    are rows x size."""
+    monkeypatch.setenv(pl.BACKEND_ENV, "cpu")
+    d, contents = lost_dir
+    ev = open_volume(d)
+    try:
+        by_trace = traced_reads(ev, contents)
+        want_of = {}
+        for nid in contents:
+            off, size = ev.find_needle(nid)
+            groups = {}
+            for iv in locate_data(LB, SB, ev.dat_size, off,
+                                  t.actual_size(size, t.CURRENT_VERSION)):
+                sid, soff = iv.to_shard_and_offset(LB, SB)
+                if sid in LOST:
+                    groups.setdefault((soff, iv.size), []).append(sid)
+            want_of[nid] = [(sids, len(sids), len(sids) * n)
+                            for (_, n), sids in groups.items()]
+    finally:
+        ev.close()
+    got = sorted([(s["attrs"]["want"], s["attrs"]["rows"], s["bytes"])
+                  for s in spans if s["op"] == "recover"]
+                 for spans in by_trace.values())
+    assert got == sorted(want_of.values())
+    assert sum(len(r) for r in got) > 0
 
 
 def test_a_held_lock_shows_as_its_wait(lost_dir, ring, monkeypatch):
