@@ -69,6 +69,17 @@ def _request_vid(req: "web.Request") -> int | None:
     return int(v) if v.isdigit() else None
 
 
+def _count_fetch(span, transport: str, nbytes: int) -> None:
+    """One remote shard request that answered: its interval bytes on its
+    `ec.fetch` span, and SeaweedFS_ec_fetches_total and
+    SeaweedFS_ec_fetch_bytes_total by the transport it rode."""
+    from ..stats import metrics
+    span.nbytes = nbytes
+    if metrics.HAVE_PROMETHEUS:
+        metrics.EC_FETCHES.labels(transport).inc()
+        metrics.EC_FETCH_BYTES.labels(transport).inc(nbytes)
+
+
 class VolumeServer:
     # the longest a -workers worker holds its first heartbeat for a
     # sibling that is still starting (_await_siblings)
@@ -590,14 +601,15 @@ class VolumeServer:
         return out
 
     def _sync_shard_fetch(self, target: str, query: dict,
-                          headers: dict) -> tuple[int, bytes]:
+                          headers: dict) -> tuple[int, bytes, str]:
         """One /admin/ec/shard_read fetch (executor threads only):
         frame path first — tens of bytes of protocol overhead per
         gather instead of HTTP headers — with a jittered-backoff
         re-probe gate when the holder refused the frame handshake
         (predates the protocol; journaled as `frame_downgrade`), and a
         one-shot HTTP retry when the frame transport failed
-        mid-flight."""
+        mid-flight. Returns (status, body, the transport it rode:
+        "frame" or "http")."""
         from ..util.connpool import FrameUnsupported, PoolError
         path = "/admin/ec/shard_read"
         http_path = path + "?" + urllib.parse.urlencode(query)
@@ -607,10 +619,10 @@ class VolumeServer:
                 # faults take the exact ride-HTTP-this-request path a
                 # mid-flight transport failure does
                 failpoints.sync_fail("ec.fetch.frame")
-                out = self._sync_frames.request(
+                status, body = self._sync_frames.request(
                     target, path, headers=headers, query=query)
                 self._frame_gate.ok(target)
-                return out
+                return status, body, "frame"
             except FrameUnsupported as e:
                 self._frame_gate.refused(target, str(e))
             except (PoolError, OSError) as e:
@@ -618,8 +630,9 @@ class VolumeServer:
                 # request rides HTTP, the next one retries frames
                 glog.V(1).infof("shard fetch %s over frames: %s; "
                                 "retrying over HTTP", target, e)
-        return self._sync_pool.request(target, http_path,
-                                       headers=headers)
+        status, body = self._sync_pool.request(target, http_path,
+                                               headers=headers)
+        return status, body, "http"
 
     def _sync_fetch_remote_shard(self, vid: int, shard_id: int,
                                  offset: int, size: int) -> bytes | None:
@@ -631,38 +644,47 @@ class VolumeServer:
         shards = self._ec_locations.get(vid)
         if shards is None:
             return None
-        # runs inside the executor thread whose context the read path
-        # copied in, so the store span is current here — stamping the
-        # traceparent keeps the remote holder's shard_read span in THIS
-        # request's trace
-        trace_headers: dict = {}
-        tracing.inject(trace_headers)
         attempted = False
         for target in shards.get(str(shard_id), []):
             if target == self.url:
                 continue
             attempted = True
-            try:
-                failpoints.sync_fail("volume.ec_fetch")
-                status, body = self._sync_shard_fetch(
-                    target,
-                    {"volume": str(vid),
-                     "reads": f"{shard_id}:{offset}:{size}"},
-                    trace_headers)
-                if status == 200:
-                    rows = batchframe.parse_all(body)
-                    if rows and rows[0][0].get("status") == 200 \
-                            and len(rows[0][1]) == size:
-                        return rows[0][1]
-                glog.warning("remote ec shard %d.%d from %s: "
-                             "status %d, %d bytes", vid, shard_id,
-                             target, status, len(body))
-            except (OSError, ValueError) as e:
-                # PoolError/timeouts/torn framing: a swallowed holder
-                # failure must be visible
-                glog.warning("remote ec shard %d.%d from %s: %s",
-                             vid, shard_id, target, e)
-                continue
+            # one `ec.fetch` span a holder asked; its traceparent keeps
+            # the holder's shard_read span in THIS request's trace (the
+            # executor thread runs in the context the read path copied)
+            with tracing.start("ec", "fetch", holder=target,
+                               intervals=1) as fsp:
+                trace_headers: dict = {}
+                tracing.inject(trace_headers, fsp)
+                try:
+                    failpoints.sync_fail("volume.ec_fetch")
+                    status, body, transport = self._sync_shard_fetch(
+                        target,
+                        {"volume": str(vid),
+                         "reads": f"{shard_id}:{offset}:{size}"},
+                        trace_headers)
+                    fsp.set("transport", transport)
+                    data = None
+                    if status == 200:
+                        rows = batchframe.parse_all(body)
+                        if rows and rows[0][0].get("status") == 200 \
+                                and len(rows[0][1]) == size:
+                            data = rows[0][1]
+                    _count_fetch(fsp, transport,
+                                 0 if data is None else size)
+                    if data is not None:
+                        return data
+                    fsp.status = "error"
+                    glog.warning("remote ec shard %d.%d from %s: "
+                                 "status %d, %d bytes", vid, shard_id,
+                                 target, status, len(body))
+                except (OSError, ValueError) as e:
+                    # PoolError/timeouts/torn framing: a swallowed holder
+                    # failure must be visible
+                    fsp.status = "error"
+                    glog.warning("remote ec shard %d.%d from %s: %s",
+                                 vid, shard_id, target, e)
+                    continue
         if attempted or not shards.get(str(shard_id)):
             # a listed holder failed to serve — or the map lists NO
             # holder for this shard: either way the topology may have
@@ -683,7 +705,9 @@ class VolumeServer:
         wanted (shard, offset, size) intervals by HOLDER and issue one
         `/admin/ec/shard_read?reads=...` per holder — the k-fetch
         network fan-out of a degraded read collapses to one round trip
-        per surviving server (arxiv 1309.0186's recovery-cost shape)."""
+        per surviving server (arxiv 1309.0186's recovery-cost shape).
+        The holders are asked one after another, each in an `ec.fetch`
+        span of its own."""
         shards = self._ec_locations.get(vid)
         if shards is None:
             return None
@@ -701,32 +725,40 @@ class VolumeServer:
             # shard becomes visible within FRESH_S, not TTL_S
             self._ec_locations.invalidate(vid)
             return None
-        trace_headers: dict = {}
-        tracing.inject(trace_headers)
         out: dict[int, bytes] = {}
         failed = False
         for target, group in by_holder.items():
             spec = ",".join(f"{sid}:{off}:{size}"
                             for sid, off, size in group)
-            try:
-                failpoints.sync_fail("volume.ec_fetch")
-                status, body = self._sync_shard_fetch(
-                    target, {"volume": str(vid), "reads": spec},
-                    trace_headers)
-                if status != 200:
-                    raise OSError(f"status {status}")
-                rows = batchframe.parse_all(body)
-            except (OSError, ValueError) as e:
-                glog.warning("batched ec gather %d from %s (%d "
-                             "intervals): %s", vid, target,
-                             len(group), e)
-                failed = True
-                continue
-            for (sid, _, size), (meta, data) in zip(group, rows):
-                if meta.get("status") == 200 and len(data) == size:
-                    out[sid] = data
-                else:
+            with tracing.start("ec", "fetch", holder=target,
+                               intervals=len(group)) as fsp:
+                trace_headers: dict = {}
+                tracing.inject(trace_headers, fsp)
+                try:
+                    failpoints.sync_fail("volume.ec_fetch")
+                    status, body, transport = self._sync_shard_fetch(
+                        target, {"volume": str(vid), "reads": spec},
+                        trace_headers)
+                    fsp.set("transport", transport)
+                    if status != 200:
+                        _count_fetch(fsp, transport, 0)
+                        raise OSError(f"status {status}")
+                    rows = batchframe.parse_all(body)
+                except (OSError, ValueError) as e:
+                    fsp.status = "error"
+                    glog.warning("batched ec gather %d from %s (%d "
+                                 "intervals): %s", vid, target,
+                                 len(group), e)
                     failed = True
+                    continue
+                got = 0
+                for (sid, _, size), (meta, data) in zip(group, rows):
+                    if meta.get("status") == 200 and len(data) == size:
+                        out[sid] = data
+                        got += size
+                    else:
+                        failed = True
+                _count_fetch(fsp, transport, got)
         if failed:
             self._ec_locations.invalidate(vid)
         return out or None

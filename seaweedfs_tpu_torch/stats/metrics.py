@@ -92,6 +92,17 @@ if HAVE_PROMETHEUS:
         "SeaweedFS_ec_recover_rows_total",
         "lost shard intervals decoded by degraded-read recovers, by path",
         ["path"], registry=REGISTRY)
+    # remote EC shard reads (server/volume_server.py): one a holder
+    # request that answered, and the interval bytes it brought, by the
+    # transport it rode ("frame" or "http")
+    EC_FETCHES = Counter(
+        "SeaweedFS_ec_fetches_total",
+        "remote EC shard-interval requests answered, by transport",
+        ["transport"], registry=REGISTRY)
+    EC_FETCH_BYTES = Counter(
+        "SeaweedFS_ec_fetch_bytes_total",
+        "EC shard-interval bytes fetched from peers, by transport",
+        ["transport"], registry=REGISTRY)
     # tiered read caches (util/chunk_cache.py): one label per cache —
     # "needle" (volume hot needles), "chunk" (filer/s3/webdav whole
     # chunks), "ec_recover" (degraded-read reconstructions),
