@@ -38,7 +38,10 @@ then:
    under and over each span size, (4096, 4096) (also in 64-byte spans,
    more tiles than blocks) and 65,537 rows of 16 bytes, and one 128 MiB
    row (to the host CRC alone) whose tile states stage 2 carries in 8
-   chunks;
+   chunks; and the chain of a one-window recover (copy in, K1 and copy
+   out in pieces on two streams) byte-equal to the plain version for 1-4
+   recovered rows at L = 1 MiB, 1 MiB + 7 and 3 MiB + 1, at its own plan
+   and at 1, 2, 4 and 8 pieces;
 3. runs the flagship steps of models/ec_model.py (encode, rebuild of
    lost {0,3,7,9}, verify) on 10 shards x 256 MiB resident on the card,
    checks each against the plain version and times it;
@@ -49,7 +52,10 @@ then:
    decoded back by write_dat_file, and every window is verified by
    batch.verify_block before and after one flipped byte;
 5. times the kernel and its plain version at the pipeline's block shape,
-   and the fused bit-matrix kernel beside the GF(256) kernel, its plain
+   a (1, 10, 1 MiB) recover of 1-4 rows on the serial path and as a
+   chain of 1, 2, 4 and 8 pieces in turns (card busy time a recover
+   from the device trace, and the share of the copies' out time inside
+   copies in), and the fused bit-matrix kernel beside the GF(256) kernel, its plain
    version, its bound and its registers and spills at that block and at
    one 1 MiB rows=1 recover (time_mxu(..., parent=load_parent_k4(DIR))
    adds an earlier K4 from DIR's copies of its two files, in turns with
@@ -253,7 +259,7 @@ from seaweedfs_tpu_torch.ec.encoder_torch import device_consts
 from seaweedfs_tpu_torch.models import ec_model
 from seaweedfs_tpu_torch.ops import _build, gf256_cuda, gf256_mxu
 from seaweedfs_tpu_torch.ops.gf256_cuda import (
-    gf256_stacked_transform, gf256_stacked_transform_reference,
+    gf256_chain, gf256_stacked_transform, gf256_stacked_transform_reference,
     gf256_transform, gf256_transform_reference)
 from seaweedfs_tpu_torch.ops.gf256_mxu import (
     device_bitmatrix, gf2_bitmatrix_transform,
@@ -544,6 +550,54 @@ def phase_stacked_vs_plain(dev: torch.device, seed: int) -> int:
           f"shifted inputs: max_abs_err={err}")
     check(err == 0, "stacked entry differs from its plain version on "
           "misaligned out= views")
+    return max_err
+
+
+# the piece counts the chain is held to its plain version and timed at
+CHAIN_PIECES = (1, 2, 4, 8)
+
+
+def recover_block(seed: int, rows: int, length: int) -> tuple:
+    """(coeff, block): the (rows, 10) matrix that recovers the first
+    `rows` of LOST from the survivors and a seeded (1, 10, length) host
+    block of survivor bytes, a card recover's inputs."""
+    coeff = gf.cached_shard_rows(tuple(LOST[:rows]),
+                                 tuple(present_for(LOST)))
+    rng = np.random.default_rng(seed + rows)
+    return coeff, rng.integers(0, 256, (1, gf.DATA_SHARDS, length),
+                               dtype=np.uint8)
+
+
+def phase_chain_vs_plain(dev: torch.device, seed: int) -> int:
+    """The chain (a one-window recover enqueued in pieces on two streams,
+    TorchEncoder.transform_chain_async) byte-equal to the plain version
+    for 1-4 recovered rows at L = 1 MiB, 1 MiB + 7 and 3 MiB + 1, at its
+    own plan and at every CHAIN_PIECES count; returns the max absolute
+    byte difference."""
+    from seaweedfs_tpu_torch.ec.encoder_torch import TorchEncoder
+    encoder = TorchEncoder(device=dev)
+    max_err = 0
+    for rows in range(1, 5):
+        for length in (MIB, MIB + 7, 3 * MIB + 1):
+            coeff, block = recover_block(seed, rows, length)
+            want = gf256_transform_reference(
+                device_consts(coeff, dev),
+                torch.from_numpy(block).to(dev)).cpu()
+            plans = {"plan": gf256_cuda.piece_bounds(length)}
+            plans.update((f"P={p}", gf256_cuda.split_bounds(length, p))
+                         for p in CHAIN_PIECES)
+            errs = {}
+            for name, bounds in plans.items():
+                got = torch.from_numpy(encoder.transform_chain_async(
+                    coeff, block[0], bounds)())
+                errs[name] = abs_err(got, want)
+            err = max(errs.values())
+            max_err = max(max_err, err)
+            print(f"  chain vs plain: rows={rows} L={length} pieces "
+                  f"{ {n: len(b) - 1 for n, b in plans.items()} }: "
+                  f"max_abs_err={err}")
+            check(err == 0, f"the chain differs from the plain version at "
+                  f"rows={rows} L={length}: {errs}")
     return max_err
 
 
@@ -929,6 +983,105 @@ def time_pipeline_block(dev: torch.device, seed: int, card: str) -> dict:
     return report_timing(f"pipeline block ({bsz}, {k}, {length}) encode",
                          ms, b2b_ms, plain_ms,
                          bound(consts.shape[0], k, bsz, length), dev, card)
+
+
+def chrome_ops(prof) -> list[dict]:
+    """The device operations of a finished torch.profiler trace: cat,
+    name, start and end (ns) and bytes."""
+    return [{"cat": e.get("cat"), "name": e.get("name", ""),
+             "start": float(e["ts"]) * 1e3,
+             "end": (float(e["ts"]) + float(e["dur"])) * 1e3,
+             "bytes": int((e.get("args") or {}).get("bytes", 0) or 0)}
+            for e in chrome_events(prof)
+            if e.get("cat") in DEVICE_ACTIVITIES]
+
+
+def union(spans: list[tuple]) -> list[list]:
+    """The union of (start, end) spans, in order."""
+    out: list[list] = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def copy_overlap(ops: list[dict]) -> dict:
+    """Of a trace's device operations: the busy time (their union), the
+    time of the copies in, the copies out and the kernels, the bytes
+    copied out, and the share of the copies' out time that lies inside
+    the union of the copies in (ns)."""
+    h2d = [o for o in ops if "HtoD" in o["name"]]
+    d2h = [o for o in ops if "DtoH" in o["name"]]
+    kern = [o for o in ops if o["cat"] == "kernel"]
+    busy = sum(hi - lo for lo, hi in union(
+        [(o["start"], o["end"]) for o in ops]))
+    h2d_u = union([(o["start"], o["end"]) for o in h2d])
+    inside = 0.0
+    for o in d2h:
+        for lo, hi in h2d_u:
+            inside += max(0.0, min(hi, o["end"]) - max(lo, o["start"]))
+    d2h_ns = sum(o["end"] - o["start"] for o in d2h)
+    return {"busy": busy,
+            "h2d": sum(o["end"] - o["start"] for o in h2d),
+            "d2h": d2h_ns, "k1": sum(o["end"] - o["start"] for o in kern),
+            "d2h_bytes": sum(o["bytes"] for o in d2h),
+            "d2h_inside": inside / d2h_ns if d2h_ns else 0.0}
+
+
+def time_chain(dev: torch.device, seed: int, card: str, rounds: int = 3,
+               n: int = 30) -> dict:
+    """Card busy time per recover of a (1, 10, 1 MiB) window, from the
+    device trace of n recovers made one after another, on the serial
+    path (TorchEncoder.transform_async: copy in, K1, copy out on one
+    stream) and as a chain of P = CHAIN_PIECES pieces, in turns over
+    `rounds` rounds, for 1-4 recovered rows; with the share of the
+    copies' out time that lies inside copies in, and the bytes copied
+    out per recover (rows x 1 MiB). Returns {rows: {variant: medians}}."""
+    from torch.profiler import ProfilerActivity, profile
+    encoder = pl.get_encoder("gpu")
+    out = {}
+    for rows in range(1, 5):
+        coeff, block = recover_block(seed, rows, MIB)
+        variants = {"serial": lambda: encoder.transform_async(
+            coeff, block)()}
+        for p in CHAIN_PIECES:
+            variants[f"P={p}"] = (
+                lambda b=gf256_cuda.split_bounds(MIB, p):
+                encoder.transform_chain_async(coeff, block[0], b)())
+        seen: dict = {name: [] for name in variants}
+        for _ in range(rounds):
+            for name, run in variants.items():
+                run()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        run()
+                    torch.cuda.synchronize()
+                seen[name].append(copy_overlap(chrome_ops(prof)))
+        out[rows] = {}
+        for name, runs in seen.items():
+            med = {key: float(np.median([r[key] for r in runs]))
+                   for key in runs[0]}
+            out[rows][name] = {"busy_ms": med["busy"] / n / 1e6,
+                               "h2d_ms": med["h2d"] / n / 1e6,
+                               "d2h_ms": med["d2h"] / n / 1e6,
+                               "k1_ms": med["k1"] / n / 1e6,
+                               "d2h_bytes": med["d2h_bytes"] / n,
+                               "d2h_inside": med["d2h_inside"]}
+            check(med["d2h_bytes"] == n * rows * MIB,
+                  f"{name}: the copies out moved {med['d2h_bytes'] / n} "
+                  f"bytes a recover, expected {rows * MIB}")
+        base = out[rows]["serial"]["busy_ms"]
+        print(f"  recover (1, 10, 1 MiB) rows={rows}, card busy a recover "
+              f"(median of {rounds} rounds of {n}): " + "; ".join(
+                  f"{name} {v['busy_ms']:.4f} ms ({base / v['busy_ms']:.3f}x"
+                  f"; HtoD {v['h2d_ms']:.4f}, DtoH {v['d2h_ms']:.4f}, K1 "
+                  f"{v['k1_ms']:.4f}; DtoH inside HtoD "
+                  f"{100 * v['d2h_inside']:.1f}%)"
+                  for name, v in out[rows].items()) + f" [{card}]")
+    return out
 
 
 # a gf2_bitmatrix_kernel<KS, NI> instance in a mangled name
@@ -1491,11 +1644,11 @@ def device_busy(events) -> dict:
             "by_name": by_name}
 
 
-def trace_events(prof) -> list[tuple]:
-    """(category, start_ns, end_ns, name) of every complete event in a
-    finished torch.profiler trace, read back from its Chrome trace (the
-    category there is the activity type on every torch release; the
-    Python event objects do not carry it on all of them)."""
+def chrome_events(prof) -> list[dict]:
+    """Every complete event of a finished torch.profiler trace, read back
+    from its Chrome trace (the category there is the activity type on
+    every torch release; the Python event objects do not carry it on all
+    of them)."""
     os.makedirs(WORK_DIR, exist_ok=True)
     path = os.path.join(WORK_DIR, "trace.json")
     try:
@@ -1504,10 +1657,16 @@ def trace_events(prof) -> list[tuple]:
             trace = json.load(f)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return [e for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def trace_events(prof) -> list[tuple]:
+    """(category, start_ns, end_ns, name) of every complete event in a
+    finished torch.profiler trace."""
     return [(e.get("cat"), round(float(e["ts"]) * 1e3),
              round((float(e["ts"]) + float(e["dur"])) * 1e3), e.get("name"))
-            for e in trace.get("traceEvents", [])
-            if e.get("ph") == "X" and "dur" in e]
+            for e in chrome_events(prof)]
 
 
 def time_mesh_step(mesh, data: torch.Tensor, dev: torch.device) -> None:
@@ -1680,6 +1839,41 @@ def split_at(intervals: list[tuple], threshold: int) -> tuple[int, int]:
     return len(intervals) - big, big
 
 
+def chain_launches(size: int, chained: bool) -> int:
+    """K1's launches for one transform of k buffers of `size` bytes
+    through pipeline._transform_buffers_async (a recover, a batched
+    generate's flush): on the card (`chained`) its chain launches once a
+    piece (gf256_cuda.piece_bounds); the plain version, off the card, is
+    counted once a transform."""
+    return len(gf256_cuda.piece_bounds(size)) - 1 if chained else 1
+
+
+def card_launches(recovers: list[tuple], threshold: int,
+                  chained: bool) -> int:
+    """K1's launches for the recovers of row_recovers at or above the
+    threshold: the card's."""
+    return sum(chain_launches(r[3], chained) for r in recovers
+               if r[3] >= threshold)
+
+
+def needle_launches(recovers: list[tuple], threshold: int,
+                    chained: bool) -> Counter:
+    """K1's launches for each needle's recovers of row_recovers at or
+    above the threshold (the card's), by needle id."""
+    out: Counter = Counter()
+    for r in recovers:
+        if r[3] >= threshold:
+            out[r[0]] += chain_launches(r[3], chained)
+    return out
+
+
+def localize_launches(window: int, chained: bool) -> int:
+    """K1's launches for localizing one corrupt stripe window
+    (batch.localize_corrupt_rows): 14 hypotheses, each a reconstruct of
+    one row and a re-verify."""
+    return gf.TOTAL_SHARDS * (chain_launches(window, chained) + 1)
+
+
 def check_cache_cold(store, specs: dict, intervals: list[tuple],
                      vid: int = STORE_VID) -> None:
     """Neither the needle cache nor the recover cache holds anything a
@@ -1704,9 +1898,10 @@ def check_store_counts(seen: dict, path: str = "store path") -> int:
 
 
 class RecordLaunches:
-    """Stands in for encoder_torch's gf256_transform during pass C: calls
-    the wrapper (which launches and counts), records every launch's input
-    shape, and keeps inputs and outputs of the chosen launch indices."""
+    """Stands in for encoder_torch's gf256_transform and gf256_chain
+    during pass C: calls the wrapper (which launches and counts), records
+    every transform's input shape, and keeps inputs and outputs of the
+    chosen transform indices."""
 
     def __init__(self, keep: set[int]):
         self.keep = keep
@@ -1720,6 +1915,24 @@ class RecordLaunches:
         if i in self.keep:
             self.kept[i] = (consts, x.clone(), out.clone())
         return out
+
+    def chain(self, consts, host_in, dev_in, dev_out, host_out, bounds,
+              streams=None, events=None, transform=None):
+        """A card recover's chain: enqueued whole, with the card's own K1
+        (the `transform` it is handed is this recorder), recorded as its
+        (1, k, L) input and, where kept, held once the card is done, its
+        input laid back out row by row from the piece-major staging."""
+        gf256_chain(consts, host_in, dev_in, dev_out, host_out, bounds,
+                    streams, events)
+        k, length = consts.shape[1], dev_out.shape[-1]
+        i = len(self.shapes)
+        self.shapes.append((1, k, length))
+        if i in self.keep:
+            sync(dev_out.device)
+            x = torch.empty((1, k, length), dtype=torch.uint8)
+            for a, b in zip(bounds, bounds[1:]):
+                x[0, :, a:b] = host_in[k * a:k * b].view(k, b - a)
+            self.kept[i] = (consts, x.to(dev_out.device), dev_out.clone())
 
 
 def sample_by_class(intervals: list[tuple], seed: int, per_class: int = 3
@@ -1759,6 +1972,8 @@ def phase_store(dev: torch.device, seed: int, target: int,
     from seaweedfs_tpu_torch.storage.store import Store
 
     tag = f"[{card}]" if card else ""
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
     shutil.rmtree(STORE_DIR, ignore_errors=True)
     os.makedirs(STORE_DIR)
     launches, expected, timing = {}, {}, {}
@@ -1848,8 +2063,8 @@ def phase_store(dev: torch.device, seed: int, target: int,
               and cycle["errors"] == [],
               f"scrub cycle found {found} (errors {cycle['errors']}), "
               f"expected window {flip_w} localized to shard {SCRUB_SHARD}")
-        # 14 hypotheses, each a reconstruct and a re-verify
-        expected["scrub"] = cycle["dispatches"] + 2 * gf.TOTAL_SHARDS
+        expected["scrub"] = cycle["dispatches"] + localize_launches(
+            VERIFY_WINDOW, chained)
         flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_at)
         print(f"  verify_parity: clean, {expected['verify']} dispatches in "
               f"{timing['verify']:.3f} s; after a flipped byte of .ec12 "
@@ -1869,7 +2084,7 @@ def phase_store(dev: torch.device, seed: int, target: int,
         check_cache_cold(store, specs, ivs)
         host_n, card_n = split_at(recs, threshold)
         lat_b = counted("pass B", lambda: read_pass(store, specs, order))
-        expected["pass B"] = card_n
+        expected["pass B"] = card_launches(recs, threshold, chained)
         print(f"  pass B: {len(ivs)} intervals on lost shards {LOST} in "
               f"{len(recs)} recovers: {host_n} under the {threshold}-byte "
               f"threshold (host CpuEncoder), {card_n} at or above it (the "
@@ -1885,13 +2100,15 @@ def phase_store(dev: torch.device, seed: int, target: int,
               "second store did not mount the degraded EC volume")
         recorder = RecordLaunches(sample_by_class(recs, seed))
         encoder_torch.gf256_transform = recorder
+        encoder_torch.gf256_chain = recorder.chain
         try:
             lat_c = counted("pass C",
                             lambda: read_pass(store_c, specs, order))
         finally:
             encoder_torch.gf256_transform = gf256_transform
+            encoder_torch.gf256_chain = gf256_chain
             store_c.close()
-        expected["pass C"] = len(recs)
+        expected["pass C"] = card_launches(recs, 0, chained)
         want_shapes = [(1, gf.DATA_SHARDS, r[3]) for r in recs]
         check(recorder.shapes == want_shapes,
               "pass C launches differ from the lost-shard recovers in "
@@ -1904,8 +2121,9 @@ def phase_store(dev: torch.device, seed: int, target: int,
         check(max_err == 0, f"pass C recovers differ from the plain "
               f"version by {max_err}")
         sizes = sorted({recorder.kept[i][1].shape[2] for i in recorder.kept})
-        print(f"  pass C (ec_small_recover_bytes=0): {len(recs)} launches "
-              f"at (1, 10, n), n {min(r[3] for r in recs)}..."
+        print(f"  pass C (ec_small_recover_bytes=0): {len(recs)} recovers "
+              f"({expected['pass C']} launches) at (1, 10, n), n "
+              f"{min(r[3] for r in recs)}..."
               f"{max(r[3] for r in recs)}, up to "
               f"{max(len(r[1]) for r in recs)} rows out; "
               f"{len(recorder.kept)} sampled "
@@ -2084,6 +2302,8 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
     from seaweedfs_tpu_torch.util import crc32c
 
     tag = f"[{card}]" if card else ""
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
     launches, expected, timing = {}, {}, {}
     vid = SERVER_VID
     base = os.path.join(SERVER_DIR, str(vid))
@@ -2196,7 +2416,8 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
         check_cache_cold(store, specs, ivs, vid)
         host_n, card_n = split_at(row_recovers(ivs), ev.small_recover_bytes)
         lat_b = await counted("pass B", read_all(order, specs))
-        expected["pass B"] = card_n
+        expected["pass B"] = card_launches(
+            row_recovers(ivs), ev.small_recover_bytes, chained)
         print(f"  pass B: {len(ivs)} intervals on lost shards {LOST}: "
               f"{host_n} under the {ev.small_recover_bytes}-byte threshold "
               f"(host CpuEncoder), {card_n} at or above it (the EC "
@@ -2245,8 +2466,8 @@ async def _drive_server(dev: torch.device, seed: int, target: int,
               f"/debug/scrub cycle found {found} (errors "
               f"{cycle['errors']}), expected window {flip_w} localized to "
               f"shard {SCRUB_SHARD}")
-        # 14 hypotheses, each a reconstruct and a re-verify
-        expected["scrub"] = cycle["dispatches"] + 2 * gf.TOTAL_SHARDS
+        expected["scrub"] = cycle["dispatches"] + localize_launches(
+            VERIFY_WINDOW, chained)
         flip_byte(base + pl.to_ext(SCRUB_SHARD), flip_at)
         print(f"  /admin/ec/verify windowMB=1: clean, {expected['verify']} "
               f"dispatches in {timing['verify']:.3f} s; after a flipped "
@@ -2421,9 +2642,9 @@ async def _drive_mxu_server(dev: torch.device, seed: int, target: int,
 
         lat_b = await counted("pass B", read_all())
         expected["pass B"] = {"K4 calls": card_n, "K1": 0}
-        check(card_n == phase8["expected"]["pass B"],
+        check(card_n == phase8["split"][1],
               f"pass B: {card_n} recovers on the card, phase 8 had "
-              f"{phase8['expected']['pass B']}")
+              f"{phase8['split'][1]}")
         print(f"  pass B: {len(order)} needles equal with shards {LOST} "
               f"lost, {card_n} recovers through K4 and {host_n} on the host "
               f"CpuEncoder in {timing['pass B']:.3f} s, p50 "
@@ -2759,12 +2980,19 @@ def cluster_master_args(directory: str, limit_mb: int) -> list[str]:
 
 
 def batched_generate_launches(dat_size: int, large_block: int,
-                              small_block: int) -> int:
+                              small_block: int, chained: bool = False) -> int:
     """Launches of pipeline.write_ec_files_batched for one volume: its row
-    batches are queued per buffer length and flushed 8 at a time."""
+    batches are queued per buffer length and flushed 8 at a time, each
+    flush one transform of its buffers end to end (chain_launches)."""
     per_len = Counter(buf for _, _, buf, _ in pl._iter_row_batches(
         dat_size, large_block, small_block, 8 * MIB))
-    return sum(math.ceil(n / 8) for n in per_len.values())
+    total = 0
+    for buf, n in per_len.items():
+        full, rest = divmod(n, 8)
+        total += full * chain_launches(8 * buf, chained)
+        if rest:
+            total += chain_launches(rest * buf, chained)
+    return total
 
 
 def rebuild_launches(shard_size: int) -> int:
@@ -2799,14 +3027,16 @@ def server_layout(seed: int, target: int) -> tuple[int, list[tuple]]:
 
 
 def cluster_prediction(seed: int, target: int,
-                       lost: tuple = (0, 2, 4, 6)) -> dict:
+                       lost: tuple = (0, 2, 4, 6),
+                       chained: bool = False) -> dict:
     """Phase 11's K1 launches per step for the volume phase 8 writes from
     `seed` up to `target` bytes, with `lost` the shards of one server
     deleted before pass B, reckoned on any host from the needle layout
     (server_layout) and the server's defaults: 1 GiB large and 1 MiB
     small blocks, 1 MiB recover threshold, the shell's 4 MiB verify
     windows, the scrubber's 1 MiB windows. The autopilot's rebuild is two
-    rebuild_shard actions, one on each server."""
+    rebuild_shard actions, one on each server. With `chained` (the card)
+    a recover launches once a piece of its chain (chain_launches)."""
     from seaweedfs_tpu_torch.ec.locate import locate_data
     from seaweedfs_tpu_torch.ec.scrub import Scrubber
     dat_size, layout = server_layout(seed, target)
@@ -2820,20 +3050,21 @@ def cluster_prediction(seed: int, target: int,
                               st.actual_size(size, st.CURRENT_VERSION)):
             sid, soff = iv.to_shard_and_offset(large, small)
             if sid in lost and iv.size >= MIB:
-                rows.add(soff)
+                rows.add((soff, iv.size))
         # one recover a stripe row (EcVolume.read_needle)
-        recovers += len(rows)
+        recovers += sum(chain_launches(n, chained) for _, n in rows)
     rebuild = rebuild_launches(shard)
     scrub_batch = ecb.clamp_batch_windows(
         ecb.DEFAULT_BATCH_WINDOWS, VERIFY_WINDOW, gf.TOTAL_SHARDS,
         budget=Scrubber.BLOCK_BYTES)
     verify = verify_launches(shard, SHELL_VERIFY_WINDOW)
     return {"assign reads": 0,
-            "ec.encode": batched_generate_launches(dat_size, large, small),
+            "ec.encode": batched_generate_launches(dat_size, large, small,
+                                                  chained),
             "pass A": 0, "pass B": recovers, "autopilot": 2 * rebuild,
             "ec.verify": verify, "ec.verify flipped": verify,
             "scrub": math.ceil(-(-shard // VERIFY_WINDOW) / scrub_batch)
-            + 2 * gf.TOTAL_SHARDS,
+            + localize_launches(VERIFY_WINDOW, chained),
             "ec.rebuild": rebuild, "ec.decode": rebuild,
             "decoded reads": 0}
 
@@ -2912,6 +3143,8 @@ async def _drive_cluster(dev: torch.device, seed: int, target: int,
     from seaweedfs_tpu_torch.util import crc32c
 
     tag = f"[{card}]" if card else ""
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
     launches, expected, timing = {}, {}, {}
     vid = SERVER_VID
     parser = cli.build_parser()
@@ -3083,7 +3316,7 @@ async def _drive_cluster(dev: torch.device, seed: int, target: int,
         res = await counted("ec.encode",
                             shell_cli(f"ec.encode -volumeId {vid}"))
         expected["ec.encode"] = batched_generate_launches(
-            dat_size, store0.ec_large_block, store0.ec_small_block)
+            dat_size, store0.ec_large_block, store0.ec_small_block, chained)
         check(isinstance(res, list) and len(res) == 1
               and res[0]["volume"] == vid, f"ec.encode answered {res}")
         spread = {u: sorted(s) for u, s in res[0]["assignments"].items()}
@@ -3126,7 +3359,8 @@ async def _drive_cluster(dev: torch.device, seed: int, target: int,
         threshold = other.store.ec_volumes[vid].small_recover_bytes
         host_n, card_n = split_at(row_recovers(ivs), threshold)
         lat_b = await counted("pass B", read_all(volume))
-        expected["pass B"] = card_n
+        expected["pass B"] = card_launches(row_recovers(ivs), threshold,
+                                           chained)
         print(f"  pass B: shards {lost} lost on {victim.url}, "
               f"{len(ivs)} intervals on them: {host_n} under the "
               f"{threshold}-byte threshold (host), {card_n} at or above "
@@ -3207,9 +3441,8 @@ async def _drive_cluster(dev: torch.device, seed: int, target: int,
               f"scrub of {owner.url} found {found} (errors "
               f"{scrub['cycle']['errors']}), expected the window at "
               f"{flip_w} localized to shard {SCRUB_SHARD}")
-        # 14 hypotheses, each a reconstruct and a re-verify
         expected["scrub"] = scrub["cycle"]["dispatches"] \
-            + 2 * gf.TOTAL_SHARDS
+            + localize_launches(VERIFY_WINDOW, chained)
         print(f"  ec.verify: clean in {timing['ec.verify']:.3f} s; after "
               f"a flipped byte of .ec{SCRUB_SHARD} the window at "
               f"{(n4 // 3) * SHELL_VERIFY_WINDOW} in "
@@ -3420,7 +3653,8 @@ def record_recover_bounds(record: int, lost: tuple) -> tuple[int, int]:
 
 def filer_prediction(seed: int, target: int,
                      chunk: int = FILER_CHUNK_MB * MIB,
-                     lost: tuple = FILER_LOST) -> dict:
+                     lost: tuple = FILER_LOST,
+                     chained: bool = False) -> dict:
     """Phase 12's K1 launches per step, reckoned on any host from the seed
     alone. Every chunk lands in the collection's one volume (the master
     grows one volume at a time and its limit is twice the tree), whose
@@ -3431,9 +3665,11 @@ def filer_prediction(seed: int, target: int,
     blocks of a chunk read, once; filer.copy uploads 8 files at a time,
     so a chunk's offset in the volume (and with it which blocks it covers
     whole) is not fixed by the seed, and those steps get the least and
-    the most over every offset, (lo, hi)."""
+    the most over every offset, (lo, hi). With `chained` (the card) each
+    recover launches once a piece of its chain (chain_launches)."""
     from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
     _, files = filer_tree(seed, target)
+    per = chain_launches(pl.SMALL_BLOCK_SIZE, chained)
     chunks = [chunk_sizes(size, chunk) for _, size in files]
     dat_size = SUPER_BLOCK_SIZE + sum(chunk_record_size(c)
                                       for cs in chunks for c in cs)
@@ -3441,8 +3677,8 @@ def filer_prediction(seed: int, target: int,
               for cs in chunks for c in cs}
 
     def span(sizes: list[int]) -> tuple[int, int]:
-        return (sum(bounds[c][0] for c in sizes),
-                sum(bounds[c][1] for c in sizes))
+        return (per * sum(bounds[c][0] for c in sizes),
+                per * sum(bounds[c][1] for c in sizes))
 
     ranged = []
     for i, start, end in filer_ranges(seed, files, chunk):
@@ -3451,7 +3687,7 @@ def filer_prediction(seed: int, target: int,
     return {"ingest": 0, "listing": 0, "GET intact": 0,
             "Range intact": 0,
             "ec.encode": batched_generate_launches(
-                dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE),
+                dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE, chained),
             "restart": 0,
             "GET degraded": span([c for cs in chunks for c in cs]),
             "Range degraded": span(ranged),
@@ -3514,6 +3750,8 @@ async def _drive_filer(dev: torch.device, seed: int, target: int,
     from seaweedfs_tpu_torch.shell.runner import dispatch
 
     tag = f"[{card}]" if card else ""
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
     launches, expected, timing = {}, {}, {}
     chunk = chunk_mb * MIB
     parser = cli.build_parser()
@@ -3702,7 +3940,7 @@ async def _drive_filer(dev: torch.device, seed: int, target: int,
                             f"{FILER_COLLECTION}_{vid}")
         expected["ec.encode"] = batched_generate_launches(
             dat_size, source.store.ec_large_block,
-            source.store.ec_small_block)
+            source.store.ec_small_block, chained)
         print(f"  ec.encode -collection {FILER_COLLECTION} (the port's "
               f"shell): volume {vid}, .dat {dat_size} bytes (the tree's "
               f"chunk records, as reckoned), {timing['ec.encode']:.3f} s, "
@@ -3758,7 +3996,7 @@ async def _drive_filer(dev: torch.device, seed: int, target: int,
         check(not any(cc.contains(fid) for fid in nid_of),
               "the restarted filer's chunk cache is not cold")
         threshold = holder.store.ec_volumes[vid].small_recover_bytes
-        big = Counter(r[0] for r in row_recovers(ivs) if r[3] >= threshold)
+        big = needle_launches(row_recovers(ivs), threshold, chained)
         lat_b = await counted("GET degraded", read_all())
         expected["GET degraded"] = sum(big.values())
 
@@ -3916,7 +4154,8 @@ def gateway_prediction(seed: int, target: int, *, part: int = S3_PART,
                        signed_large: tuple = GATEWAY_SIGNED_LARGE,
                        dav: tuple = GATEWAY_DAV,
                        dav_chunk: int = DAV_CHUNK_MB * MIB,
-                       lost: tuple = FILER_LOST) -> dict:
+                       lost: tuple = FILER_LOST,
+                       chained: bool = False) -> dict:
     """Phase 13's K1 launches per step, reckoned on any host from the seed
     alone. Each collection's chunks land in its one volume (the combined
     master keeps its 30,000 MB limit), whose .dat size is the sum of the
@@ -3925,9 +4164,11 @@ def gateway_prediction(seed: int, target: int, *, part: int = S3_PART,
     stripe row of lost whole blocks of every chunk they read once, and
     uploads run 8 at a time, so a chunk's offset in its volume is not
     fixed by the seed: those steps get the least and the most over every
-    offset."""
+    offset. With `chained` (the card) each recover launches once a piece
+    of its chain (chain_launches)."""
     from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
     dirs, files = filer_tree(seed, target)
+    per = chain_launches(pl.SMALL_BLOCK_SIZE, chained)
     gw = [s3_chunks(size, part) for _, size in files]
     sg = [chunk_sizes(size, S3_CHUNK) for _, size, _ in
           signed_objects(seed, signed, signed_large)]
@@ -3939,14 +4180,14 @@ def gateway_prediction(seed: int, target: int, *, part: int = S3_PART,
         for c in sizes:
             if c not in bounds:
                 bounds[c] = record_recover_bounds(chunk_record_size(c), lost)
-        return (sum(bounds[c][0] for c in sizes),
-                sum(bounds[c][1] for c in sizes))
+        return (per * sum(bounds[c][0] for c in sizes),
+                per * sum(bounds[c][1] for c in sizes))
 
     def encode(chunk_lists: list[list[int]]) -> int:
         dat = SUPER_BLOCK_SIZE + sum(chunk_record_size(c)
                                      for cs in chunk_lists for c in cs)
         return batched_generate_launches(dat, pl.LARGE_BLOCK_SIZE,
-                                         pl.SMALL_BLOCK_SIZE)
+                                         pl.SMALL_BLOCK_SIZE, chained)
 
     ranged = []
     for i, start, end in filer_ranges(seed, files, part):
@@ -4185,6 +4426,8 @@ async def _drive_gateway(dev, seed, target, card, part, signed,
 
     check(part <= S3_CHUNK, f"parts of {part} bytes would span chunks")
     tag = f"[{card}]" if card else ""
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
     logs = os.path.join(GATEWAY_DIR, "logs")
     loop = asyncio.get_running_loop()
     launches, expected, timing = {}, {}, {}
@@ -4579,7 +4822,8 @@ async def _drive_gateway(dev, seed, target, card, part, signed,
                   == list(range(gf.TOTAL_SHARDS)),
                   f"{step} answered {res}")
             expected[step] = batched_generate_launches(
-                dat_size, vs.store.ec_large_block, vs.store.ec_small_block)
+                dat_size, vs.store.ec_large_block, vs.store.ec_small_block,
+                chained)
             bases[c] = base
         print(f"  ec.encode -collection (`cli shell -c`, one subprocess "
               f"each): volumes {vids}, .dat sizes as reckoned, "
@@ -4625,8 +4869,7 @@ async def _drive_gateway(dev, seed, target, card, part, signed,
             ivs = lost_intervals(bases[c], lost, vs.store.ec_large_block,
                                  vs.store.ec_small_block, nids)
             ivs_all[c] = ivs
-            big[c] = Counter(r[0] for r in row_recovers(ivs)
-                             if r[3] >= threshold)
+            big[c] = needle_launches(row_recovers(ivs), threshold, chained)
 
         def drop_caches() -> None:
             for c in colls:
@@ -5003,7 +5246,8 @@ def walk_dat(path: str) -> list[tuple]:
 
 def mount_prediction(seed: int, target: int,
                      chunk: int = MOUNT_CHUNK_MB * MIB,
-                     lost: tuple = MOUNT_LOST) -> dict:
+                     lost: tuple = MOUNT_LOST,
+                     chained: bool = False) -> dict:
     """Phase 14's K1 launches per step, reckoned on any host from the
     seed alone. The files go in one at a time, so every chunk's offset
     in the collection's one volume is known (mount_layout), and so are
@@ -5012,11 +5256,13 @@ def mount_prediction(seed: int, target: int,
     row once, since the
     needle cache holds a chunk between the READs of it; each cold READ,
     with the caches emptied first, recovers its chunk's whole. The
-    ec.encode count is the .dat's row batches."""
+    ec.encode count is the .dat's row batches. With `chained` (the card)
+    each recover launches once a piece of its chain (chain_launches)."""
     plan = mount_plan(seed, target)
     layout = mount_layout(seed, target, chunk)
     dat_size = layout[-1][2] + layout[-1][3]
-    lost_of = {(i, j): full_block_rows_lost(off, rec, lost)
+    per = chain_launches(pl.SMALL_BLOCK_SIZE, chained)
+    lost_of = {(i, j): per * full_block_rows_lost(off, rec, lost)
                for i, j, off, rec in layout if j >= 0}
     read = [i for i in range(len(plan["files"])) if i != plan["gone"]]
     largest = plan["largest"]
@@ -5024,7 +5270,7 @@ def mount_prediction(seed: int, target: int,
     return {"INIT": 0, "write": 0, "listing": 0, "READ intact": 0,
             "rename, unlink, xattr": 0,
             "ec.encode": batched_generate_launches(
-                dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE),
+                dat_size, pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE, chained),
             "READ degraded": sum(n for (i, _), n in lost_of.items()
                                  if i in read),
             "READ cold": sum(lost_of[(largest, j)] for j in range(n_large)),
@@ -5082,6 +5328,8 @@ async def _drive_mount(dev: torch.device, seed: int, target: int,
     from seaweedfs_tpu_torch.shell.runner import dispatch
 
     tag = f"[{card}]" if card else ""
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
     launches, expected, timing = {}, {}, {}
     plan = mount_plan(seed, target)
     dirs, files = plan["dirs"], plan["files"]
@@ -5297,7 +5545,7 @@ async def _drive_mount(dev: torch.device, seed: int, target: int,
         spread = {u: sorted(s) for u, s in res[0]["assignments"].items()}
         expected["ec.encode"] = batched_generate_launches(
             dat_size, source.store.ec_large_block,
-            source.store.ec_small_block)
+            source.store.ec_small_block, chained)
         print(f"  ec.encode -collection {MOUNT_COLLECTION} (the port's "
               f"shell): volume {vid}, the one the master grew for the "
               f"collection, .dat {dat_size} bytes (each record where the "
@@ -5336,7 +5584,7 @@ async def _drive_mount(dev: torch.device, seed: int, target: int,
             check_cache_cold(vs.store, dict.fromkeys(nid_of.values()),
                              ivs, vid)
         threshold = holder.store.ec_volumes[vid].small_recover_bytes
-        big = Counter(r[0] for r in row_recovers(ivs) if r[3] >= threshold)
+        big = needle_launches(row_recovers(ivs), threshold, chained)
 
         # -- 8. every file again through READs, degraded
         lat_b: list[float] = []
@@ -5650,7 +5898,7 @@ def shard_byte(sid: int, x: int) -> int:
     return (x // small) * small * gf.DATA_SHARDS + sid * small + x % small
 
 
-def rot_plan(seed: int, target: int) -> dict:
+def rot_plan(seed: int, target: int, chained: bool = False) -> dict:
     """Phase 16's reckoning, from the seed alone, before the run.
 
     The flips: one byte of data shard 5 in window n/3 and one of parity
@@ -5665,7 +5913,9 @@ def rot_plan(seed: int, target: int) -> dict:
     launches: /admin/ec/generate's ceil(W/8); one per (shard offset,
     size) of every needle's lost intervals and the retries in step (a); in each rebuild, ceil(W/8)
     and one per hypothesis in the two windows that disagree, 12 of them
-    with 12 inputs and 11 with 11."""
+    with 12 inputs and 11 with 11. With `chained` (the card) a recover
+    or retry of an interval launches once a piece of its chain
+    (chain_launches)."""
     from seaweedfs_tpu_torch.ec.locate import locate_data
     dat_size, shard, layout = rot_layout(seed, target)
     large, small = pl.LARGE_BLOCK_SIZE, pl.SMALL_BLOCK_SIZE
@@ -5695,12 +5945,14 @@ def rot_plan(seed: int, target: int) -> dict:
                for iv in locate_data(
                    large, small, gf.DATA_SHARDS * shard, off,
                    st.actual_size(size, st.CURRENT_VERSION))]
-        sids = [sid for sid, _, _ in ivs]
-        lost = sum(sid in ROT_LOST for sid in sids)
         # one recover a (shard offset, size): a stripe row's lost blocks
-        reads += len({(soff, n) for sid, soff, n in ivs if sid in ROT_LOST})
+        reads += sum(chain_launches(n, chained) for _, n in
+                     {(soff, n) for sid, soff, n in ivs if sid in ROT_LOST})
         if nid in culprit:
-            reads += gf.DATA_SHARDS * lost + len(sids) - lost
+            # a retry decodes each interval once a survivor it read: 10
+            # for a recovered one, 1 for one read straight from a shard
+            reads += sum((gf.DATA_SHARDS if sid in ROT_LOST else 1)
+                         * chain_launches(n, chained) for sid, _, n in ivs)
     rebuild = rebuild_launches(shard)
     found = [(x5 // small, [ROT_DATA_SHARD]),
              (x12 // small, [ROT_PARITY_SHARD])]
@@ -5743,7 +5995,9 @@ async def _drive_rot(dev: torch.device, seed: int, target: int, card: str,
     from seaweedfs_tpu_torch import cli
 
     tag = f"[{card}]" if card else ""
-    plan = rot_plan(seed, target)
+    # on the card a recover is a chain that launches K1 once a piece
+    chained = dev.type == "cuda"
+    plan = rot_plan(seed, target, chained)
     launches, timing = {}, {}
     vid = ROT_VID
     base = os.path.join(ROT_DIR, str(vid))
@@ -6217,6 +6471,7 @@ def main(argv=None) -> int:
     stacked_err = phase_stacked_vs_plain(dev, args.seed)
     mxu_err = phase_mxu_vs_plain(dev, args.seed)
     crc_err = phase_crc32c_vs_plain(dev, args.seed)
+    chain_err = phase_chain_vs_plain(dev, args.seed)
     torch.cuda.empty_cache()
 
     clock.phase("== phase 3: flagship steps at full width")
@@ -6241,6 +6496,7 @@ def main(argv=None) -> int:
 
     clock.phase("== phase 5: kernel timing")
     t = time_pipeline_block(dev, args.seed, card)
+    chain_t = time_chain(dev, args.seed, card)
     t4 = time_mxu(dev, args.seed, card, report)
     parent_dir = args.parent_k5 or k5_parent_sources(
         os.path.join(ROOT, ".smoke_tree", "k5_parent"))
@@ -6314,7 +6570,8 @@ def main(argv=None) -> int:
                             CLUSTER_SRC, limit_mb=args.server_mib,
                             card=card, parity_sha=server["parity_sha"])
     cluster_launches = check_store_counts(cluster, "cluster path")
-    predicted = cluster_prediction(args.seed, args.server_mib * MIB)
+    predicted = cluster_prediction(args.seed, args.server_mib * MIB,
+                                   chained=True)
     check(cluster["launches"] == predicted,
           f"phase 11 launched K1 {cluster['launches']} times per step; "
           f"the reckoning from the seed alone is {predicted}")
@@ -6331,7 +6588,8 @@ def main(argv=None) -> int:
                 "through K1, fs.du, fs.meta.notify)")
     filer = phase_filer(dev, args.seed, args.server_mib * MIB, card=card)
     filer_launches = check_store_counts(filer, "filer path")
-    predicted = filer_prediction(args.seed, args.server_mib * MIB)
+    predicted = filer_prediction(args.seed, args.server_mib * MIB,
+                                 chained=True)
     check(within_prediction(filer["launches"], predicted),
           f"phase 12 launched K1 {filer['launches']} times per step; the "
           f"reckoning from the seed alone is {predicted}")
@@ -6349,7 +6607,8 @@ def main(argv=None) -> int:
     gateway = phase_gateway(dev, args.seed, args.gateway_mib * MIB,
                             card=card)
     gateway_launches = check_store_counts(gateway, "gateway path")
-    predicted = gateway_prediction(args.seed, args.gateway_mib * MIB)
+    predicted = gateway_prediction(args.seed, args.gateway_mib * MIB,
+                                   chained=True)
     check(within_prediction(gateway["launches"], predicted),
           f"phase 13 launched K1 {gateway['launches']} times per step; the "
           f"reckoning from the seed alone is {predicted}")
@@ -6366,7 +6625,8 @@ def main(argv=None) -> int:
                 "{0,3,7,9} lost, degraded READs through K1")
     mount = phase_mount(dev, args.seed, args.mount_mib * MIB, card=card)
     mount_launches = check_store_counts(mount, "mount path")
-    predicted = mount_prediction(args.seed, args.mount_mib * MIB)
+    predicted = mount_prediction(args.seed, args.mount_mib * MIB,
+                                 chained=True)
     check(mount["launches"] == predicted,
           f"phase 14 launched K1 {mount['launches']} times per step; the "
           f"reckoning from the seed alone is {predicted}")
@@ -6417,8 +6677,11 @@ def main(argv=None) -> int:
         "launches": main_launches + store_launches + server_launches
         + mxu_k1 + cluster_launches + filer_launches + gateway_launches
         + mount_launches + rot_launches + bench_k["gf256_transform"],
-        "max_abs_err": max(max_err, store["max_abs_err"]),
+        "max_abs_err": max(max_err, store["max_abs_err"], chain_err),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "chain_busy_ms": {rows: {name: v["busy_ms"]
+                                 for name, v in by.items()}
+                          for rows, by in chain_t.items()},
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "held_against_plain": True}, {
         "name": "gf256_stacked_transform", "route": "cuda",

@@ -34,18 +34,21 @@ from ..util import failpoints, glog, tracing
 from . import gf
 from .locate import (LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, Interval,
                      locate_data)
-from .pipeline import get_encoder, on_card, to_ext, _transform_buffers
+from .pipeline import (get_encoder, on_card, to_ext, _transform_buffers,
+                       _transform_buffers_async)
 
 import numpy as np
 
 
-def _count_recover(path: str, rows: int) -> None:
-    """SeaweedFS_ec_recovers_total and SeaweedFS_ec_recover_rows_total,
-    by the path the transform took: their ratio is rows per recover."""
+def _count_recover(path: str, rows: int, pieces: int) -> None:
+    """SeaweedFS_ec_recovers_total, SeaweedFS_ec_recover_rows_total and
+    SeaweedFS_ec_recover_pieces_total, by the path the transform took:
+    over the recovers, rows and pieces per recover."""
     from ..stats import metrics
     if metrics.HAVE_PROMETHEUS:
         metrics.EC_RECOVERS.labels(path).inc()
         metrics.EC_RECOVER_ROWS.labels(path).inc(rows)
+        metrics.EC_RECOVER_PIECES.labels(path).inc(pieces)
 
 
 class EcVolumeError(Exception):
@@ -527,10 +530,11 @@ class EcVolume:
             encoder = self.encoder(size)
             path = "card" if on_card(encoder) else "host"
             sp.set("path", path)
-            out = _transform_buffers(encoder, coeff, bufs)
-            datas = [np.asarray(o, np.uint8).tobytes() for o in out]
+            run = _transform_buffers_async(encoder, coeff, bufs)
+            sp.set("pieces", run.pieces)
+            datas = [np.asarray(o, np.uint8).tobytes() for o in run()]
             sp.nbytes = len(want_sids) * size
-            _count_recover(path, len(want_sids))
+            _count_recover(path, len(want_sids), run.pieces)
             if rc is not None:
                 keys = [(self.vid, sid, offset, size) for sid in want_sids]
                 if gen is not None:

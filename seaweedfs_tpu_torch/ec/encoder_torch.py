@@ -18,13 +18,16 @@ without a GPU. Nothing falls back from the card to the CPU.
 from __future__ import annotations
 
 import functools
+import weakref
 from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..ops import gf256_mxu
-from ..ops.gf256_cuda import gf256_transform
+from ..ops.gf256_cuda import (chain_streams, give_events, gf256_chain,
+                               gf256_transform, piece_bounds, stage_pieces,
+                               take_events)
 from ..util import tracing
 from . import gf
 
@@ -161,6 +164,65 @@ class TorchEncoder:
 
         return thunk
 
+    def transform_chain_async(self, coeff: np.ndarray, buffers,
+                              bounds: list[int] | None = None):
+        """Launch the transform of one window, k equal-length host byte
+        buffers, as one chain of pieces on the card (`gf256_chain`), so
+        that K1 and the copy out of each piece run under the copy in of
+        the next; returns a thunk yielding the (1, rows, L) numpy result.
+        The pieces are `bounds`, piece_bounds(L) unless given; on the card
+        the thunk's `pieces` is their number. Off the card it is
+        transform_async of the stacked (1, k, L) block.
+
+        The buffers are copied once, straight into a pinned buffer in the
+        chain's piece-major layout (`stage_pieces`), an `ec.stage` span
+        like the pinned output's allocation; the chain's one native call
+        is the `ec.h2d` span and the thunk's wait `ec.wait`. The device
+        buffers are allocated on the chain's stream A and marked as used
+        on stream B; the pinned buffers and the events are held until the
+        chain is done, by the thunk or, when it is dropped uncalled, by
+        its finaliser."""
+        if self.device.type != "cuda":
+            return self.transform_async(coeff, np.stack(
+                [np.asarray(b, np.uint8) for b in buffers])[None])
+        k, length = len(buffers), len(buffers[0])
+        consts = device_consts(coeff, self.device)
+        rows = consts.shape[0]
+        if bounds is None:
+            bounds = piece_bounds(length)
+        with tracing.start("ec", "stage"):
+            staged = torch.empty(k * length, dtype=torch.uint8,
+                                 pin_memory=True)
+            stage_pieces(buffers, bounds, staged.numpy())
+        with tracing.start("ec", "stage"):
+            host = torch.empty((1, rows, length), dtype=torch.uint8,
+                               pin_memory=True)
+        streams = chain_streams(self.device)
+        with torch.cuda.stream(streams[0]):
+            dev_in = torch.empty(k * length, dtype=torch.uint8,
+                                 device=self.device)
+            dev_out = torch.empty((1, rows, length), dtype=torch.uint8,
+                                  device=self.device)
+        dev_in.record_stream(streams[1])
+        dev_out.record_stream(streams[1])
+        events = take_events(self.device)
+        with tracing.start("ec", "h2d"):
+            # this module's K1, so that a stand-in put in its place (an
+            # instrumented or altered K1) runs in the chain too
+            gf256_chain(consts, staged, dev_in, dev_out, host, bounds,
+                        streams, events, transform=gf256_transform)
+
+        def thunk():
+            with tracing.start("ec", "wait"):
+                finish()
+                return host.numpy()
+
+        finish = weakref.finalize(thunk, _chain_done, self.device, events,
+                                  staged, host)
+        finish.atexit = False
+        thunk.pieces = len(bounds) - 1
+        return thunk
+
     def encode_batch(self, block) -> torch.Tensor:
         """(B, k, L) data windows -> (B, k+m, L) full shard windows."""
         block = self._tensor(block)
@@ -235,6 +297,13 @@ class TorchEncoder:
 
     def reconstruct_data(self, shards: list) -> list:
         return self.reconstruct(shards, data_only=True)
+
+
+def _chain_done(device: torch.device, events, *_buffers) -> None:
+    """Wait for a chain, then give its events back; the buffers it used
+    are released when this returns."""
+    events.wait()
+    give_events(device, events)
 
 
 def _host(a) -> np.ndarray:

@@ -81,26 +81,43 @@ def _transform_buffers_async(encoder, coeff: np.ndarray,
     """Launch the GF transform of k equal-length host byte buffers and
     return a thunk that yields the output byte buffers when called.
 
-    A TorchEncoder takes the buffers as one (1, k, n) block through its
-    pinned-buffer launch, as a GF(2) bit-matrix product when
-    SWTPU_TORCH_EC_METHOD is "mxu"; on CUDA the thunk waits on the stream
-    event recorded after the copy back. The host CpuEncoder, which EcVolume
-    picks for recovers under its small_recover_bytes, computes eagerly
-    and the thunk is a no-op. Any other encoder raises TypeError."""
+    On CUDA a TorchEncoder stages the buffers into a pinned buffer and
+    enqueues them as one chain of pieces on two streams
+    (`transform_chain_async`); under SWTPU_TORCH_EC_METHOD "mxu", and on
+    the CPU, it takes them as one (1, k, n) block through
+    `transform_async`, the mxu method as a GF(2) bit-matrix product. On
+    CUDA the thunk waits on the event recorded after the last copy back.
+    The host CpuEncoder, which EcVolume picks for recovers under its
+    small_recover_bytes, computes eagerly and the thunk is a no-op. Any
+    other encoder raises TypeError. The thunk's `pieces` is the number of
+    pieces the transform was enqueued in: the chain's, else 1."""
     if isinstance(encoder, CpuEncoder):
         out = encoder._apply(np.asarray(coeff, np.uint8),
                              [np.asarray(b, np.uint8) for b in buffers])
-        return lambda: out
+        return _launched(lambda: out, 1)
     if not isinstance(encoder, TorchEncoder):
         raise TypeError(f"the port's pipeline runs a TorchEncoder or a "
                         f"CpuEncoder, got {type(encoder).__name__}")
-    # the host copy of a card recover's survivors, an `ec.stage` span
-    with tracing.start("ec", "stage") if on_card(encoder) \
-            else nullcontext():
-        block = np.stack([np.asarray(b, np.uint8) for b in buffers])[None]
-    thunk = encoder.transform_async(
-        coeff, block, mxu=os.environ.get(METHOD_ENV) == "mxu")
-    return lambda: list(thunk()[0])
+    mxu = os.environ.get(METHOD_ENV) == "mxu"
+    if on_card(encoder) and not mxu:
+        thunk = encoder.transform_chain_async(
+            coeff, [np.asarray(b, np.uint8) for b in buffers])
+        pieces = thunk.pieces
+    else:
+        # the host copy of a card recover's survivors, an `ec.stage` span
+        with tracing.start("ec", "stage") if on_card(encoder) \
+                else nullcontext():
+            block = np.stack([np.asarray(b, np.uint8)
+                              for b in buffers])[None]
+        thunk = encoder.transform_async(coeff, block, mxu=mxu)
+        pieces = 1
+    return _launched(lambda: list(thunk()[0]), pieces)
+
+
+def _launched(run, pieces: int):
+    """`run`, with the pieces its transform was enqueued in as `pieces`."""
+    run.pieces = pieces
+    return run
 
 
 def _transform_buffers(encoder, coeff: np.ndarray,

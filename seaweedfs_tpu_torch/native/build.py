@@ -23,7 +23,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _SOURCES = [os.path.join(_DIR, "crc32c.c"),
             os.path.join(_DIR, "needle_map.c"),
-            os.path.join(_DIR, "gf256.c")]
+            os.path.join(_DIR, "gf256.c"),
+            os.path.join(_DIR, "stage.c")]
 # no -mavx2 etc: SIMD paths use per-function target attributes +
 # __builtin_cpu_supports runtime dispatch, so a built library stays safe
 # on a different host
@@ -96,6 +97,11 @@ def load() -> ctypes.CDLL | None:
                                          u32p, u32p]
             lib.swtpu_nm_len.restype = ctypes.c_uint64
             lib.swtpu_nm_len.argtypes = [ctypes.c_void_p]
+            lib.swtpu_stage_pieces.restype = None
+            lib.swtpu_stage_pieces.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                ctypes.c_void_p]
             lib.swtpu_nm_scan.restype = ctypes.c_uint64
             lib.swtpu_nm_scan.argtypes = [ctypes.c_void_p, u64p, u64p,
                                           u32p, u32p, ctypes.c_uint64]

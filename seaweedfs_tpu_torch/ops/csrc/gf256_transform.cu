@@ -326,35 +326,43 @@ int blocks_per_sm_for(int groups) {
   return 0;
 }
 
-}  // namespace
-
-// Plain C entry point, bound from Python with ctypes. Every pointer is a
-// device pointer; strides are in bytes (elements of uint8). Launches on
-// `stream` and does not synchronise. Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for shapes the kernel
-// does not take.
-extern "C" int swtpu_gf256_transform(const void* consts, int rows, int k,
-                                     const void* x, long long x_sb,
-                                     long long x_sk, void* out,
-                                     long long o_sb, long long o_sr,
-                                     long long batch, long long length,
-                                     void* stream) {
-  if (rows < 1 || rows > kMaxRows || k < 1 || k > kMaxK || batch < 0 ||
-      length < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (batch == 0 || length == 0) return 0;
+// The current device's SM count, asked of the runtime once a device: a
+// chain launches K1 once a piece, and the two queries would otherwise
+// double the runtime calls a launch makes.
+cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
   int device = 0;
-  int sms = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kDevices) {
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                  device);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cached[device] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    cached[device] = n;
+  }
+  *sms = cached[device];
+  return cudaSuccess;
+}
+
+// K1 over a (batch, k, length) block on `s`, without synchronising:
+// cudaGetLastError() after the launch, or the error of the device query.
+cudaError_t launch_transform(const uint8_t* c, int rows, int k,
+                             const uint8_t* xi, long long x_sb,
+                             long long x_sk, uint8_t* o, long long o_sb,
+                             long long o_sr, long long batch,
+                             long long length, cudaStream_t s) {
+  if (batch == 0 || length == 0) return cudaSuccess;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int groups = (rows + kGroupRows - 1) / kGroupRows;
   const int per_sm = blocks_per_sm_for(groups);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
 
   // at most one wave of blocks, sized so that every thread takes the same
   // number of chunks (the last ones one fewer)
@@ -366,10 +374,6 @@ extern "C" int swtpu_gf256_transform(const void* consts, int rows, int k,
       (total + per_thread * kThreads - 1) / (per_thread * kThreads);
   const dim3 grid(static_cast<unsigned>(blocks));
 
-  const uint8_t* c = static_cast<const uint8_t*>(consts);
-  const uint8_t* xi = static_cast<const uint8_t*>(x);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (groups) {
     case 1:
       gf256_transform_kernel<1><<<grid, kThreads, 0, s>>>(
@@ -388,5 +392,126 @@ extern "C" int swtpu_gf256_transform(const void* consts, int rows, int k,
           c, rows, k, xi, x_sb, x_sk, o, o_sb, o_sr, batch, length);
       break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, bound from Python with ctypes. Every pointer is a
+// device pointer; strides are in bytes (elements of uint8). Launches on
+// `stream` and does not synchronise. Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for shapes the kernel
+// does not take.
+extern "C" int swtpu_gf256_transform(const void* consts, int rows, int k,
+                                     const void* x, long long x_sb,
+                                     long long x_sk, void* out,
+                                     long long o_sb, long long o_sr,
+                                     long long batch, long long length,
+                                     void* stream) {
+  if (rows < 1 || rows > kMaxRows || k < 1 || k > kMaxK || batch < 0 ||
+      length < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_transform(
+      static_cast<const uint8_t*>(consts), rows, k,
+      static_cast<const uint8_t*>(x), x_sb, x_sk, static_cast<uint8_t*>(out),
+      o_sb, o_sr, batch, length, static_cast<cudaStream_t>(stream)));
+}
+
+// The card recover of one window as one chain of pieces on two streams.
+//
+// A recover copies its k survivor rows of L bytes in, runs K1 and copies
+// its `rows` recovered rows out. One after another on one stream, the copy
+// out and K1 wait for the whole copy in, though the card copies in and out
+// on separate engines. Cut along L into pieces [bounds[i], bounds[i + 1]),
+// piece i's K1 and copy out need only piece i's columns. So for each piece
+// this enqueues, on stream A, the copy in of the piece's k x w survivor
+// bytes and an event after it, and on stream B a wait for that event, K1
+// over the piece and the copy out of its columns of the `rows` rows. Then
+// it records `done` on B. Piece i's K1 and copy out run while A copies
+// piece i + 1 in; the copies out total rows x L bytes.
+//
+// The survivors are staged piece-major, so each piece's copy in is one
+// contiguous cudaMemcpyAsync: piece i's (k, w) rows lie at k x bounds[i]
+// of host_in and dev_in, each row w bytes. K1 reads them with row stride w
+// and writes the piece's columns of dev_out, a (rows, L) block; the copy
+// out is one 2-D copy of those columns (pitch L) into host_out, (rows, L)
+// too. Bounds that are multiples of 16 keep every piece on K1's 16-byte
+// vector path (a ragged last piece takes its byte path).
+//
+// One call enqueues the whole chain, so the host's cost of a recover does
+// not grow with the pieces: ctypes releases the interpreter's lock for the
+// call, and the card never waits for the host between two pieces.
+//
+// host_in and host_out are pinned host buffers, dev_in and dev_out device
+// buffers; `events` holds `pieces` events made by swtpu_chain_events. The
+// caller keeps every buffer alive and the events unused until `done`
+// completes. Returns the first CUDA error (0 on success), or
+// cudaErrorInvalidValue for a shape or plan the chain does not take.
+extern "C" int swtpu_gf256_chain(const void* consts, int rows, int k,
+                                 const void* host_in, void* dev_in,
+                                 void* dev_out, void* host_out,
+                                 long long length, const long long* bounds,
+                                 int pieces, void* stream_a, void* stream_b,
+                                 void* const* events, void* done) {
+  if (rows < 1 || rows > kMaxRows || k < 1 || k > kMaxK || length < 1 ||
+      pieces < 1 || bounds[0] != 0 || bounds[pieces] != length) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < pieces; ++i) {
+    if (bounds[i + 1] <= bounds[i]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const uint8_t* c = static_cast<const uint8_t*>(consts);
+  const uint8_t* hin = static_cast<const uint8_t*>(host_in);
+  uint8_t* din = static_cast<uint8_t*>(dev_in);
+  uint8_t* dout = static_cast<uint8_t*>(dev_out);
+  uint8_t* hout = static_cast<uint8_t*>(host_out);
+  cudaStream_t sa = static_cast<cudaStream_t>(stream_a);
+  cudaStream_t sb = static_cast<cudaStream_t>(stream_b);
+  const size_t pitch = static_cast<size_t>(length);
+  for (int i = 0; i < pieces; ++i) {
+    const long long a = bounds[i];
+    const long long w = bounds[i + 1] - a;
+    const long long at = k * a;  // the piece's first byte, piece-major
+    cudaEvent_t landed = static_cast<cudaEvent_t>(events[i]);
+    cudaError_t err =
+        cudaMemcpyAsync(din + at, hin + at, static_cast<size_t>(k * w),
+                        cudaMemcpyHostToDevice, sa);
+    if (err == cudaSuccess) err = cudaEventRecord(landed, sa);
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(sb, landed, 0);
+    if (err == cudaSuccess) {
+      err = launch_transform(c, rows, k, din + at, k * w, w, dout + a,
+                             rows * length, length, 1, w, sb);
+    }
+    if (err == cudaSuccess) {
+      err = cudaMemcpy2DAsync(hout + a, pitch, dout + a, pitch,
+                              static_cast<size_t>(w), rows,
+                              cudaMemcpyDeviceToHost, sb);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(
+      cudaEventRecord(static_cast<cudaEvent_t>(done), sb));
+}
+
+// Create n events for chains (no timing, so a record costs no timestamp)
+// into out[0 .. n). Returns the first CUDA error, 0 on success.
+extern "C" int swtpu_chain_events(int n, void** out) {
+  for (int i = 0; i < n; ++i) {
+    cudaEvent_t e = nullptr;
+    const cudaError_t err =
+        cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[i] = e;
+  }
+  return 0;
+}
+
+// Block until a chain's `done` event has completed. Returns its CUDA error
+// (0 on success).
+extern "C" int swtpu_chain_wait(void* done) {
+  return static_cast<int>(
+      cudaEventSynchronize(static_cast<cudaEvent_t>(done)));
 }

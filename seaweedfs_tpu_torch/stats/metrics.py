@@ -92,6 +92,13 @@ if HAVE_PROMETHEUS:
         "SeaweedFS_ec_recover_rows_total",
         "lost shard intervals decoded by degraded-read recovers, by path",
         ["path"], registry=REGISTRY)
+    # the pieces those recovers were enqueued in (ops/gf256_cuda.py's
+    # chain on the card; 1 a recover elsewhere); pieces / recovers says
+    # the chain engages
+    EC_RECOVER_PIECES = Counter(
+        "SeaweedFS_ec_recover_pieces_total",
+        "pieces degraded-read recover transforms were enqueued in, by path",
+        ["path"], registry=REGISTRY)
     # remote EC shard reads (server/volume_server.py): one a holder
     # request that answered, and the interval bytes it brought, by the
     # transport it rode ("frame" or "http")

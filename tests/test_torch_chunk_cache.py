@@ -264,14 +264,14 @@ def test_ec_recover_cache_reuses_reconstruction(tmp_path, monkeypatch):
     pl.write_sorted_file_from_idx(base)
 
     decodes = 0
-    real = ecv._transform_buffers
+    real = ecv._transform_buffers_async
 
     def counting(*a, **kw):
         nonlocal decodes
         decodes += 1
         return real(*a, **kw)
 
-    monkeypatch.setattr(ecv, "_transform_buffers", counting)
+    monkeypatch.setattr(ecv, "_transform_buffers_async", counting)
     cache = LruByteCache(8 << 20, name="ec_recover_test")
     ev = ecv.EcVolume(d, "", 5, large_block=16 * 1024, small_block=1024,
                       encoder=enc, recover_cache=cache)

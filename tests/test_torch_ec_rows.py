@@ -111,7 +111,7 @@ class Spy:
 
     def __init__(self, monkeypatch, ev):
         self.transforms, self.recovers = [], []
-        real_transform = ecv._transform_buffers
+        real_transform = ecv._transform_buffers_async
         real_recover = ev._recover_rows_src
 
         def transform(encoder, coeff, buffers):
@@ -122,7 +122,7 @@ class Spy:
             self.recovers.append((tuple(want_sids), offset, size))
             return real_recover(want_sids, offset, size)
 
-        monkeypatch.setattr(ecv, "_transform_buffers", transform)
+        monkeypatch.setattr(ecv, "_transform_buffers_async", transform)
         monkeypatch.setattr(ev, "_recover_rows_src", recover)
 
     def clear(self):
@@ -264,13 +264,43 @@ def test_recover_counters_count_rows_and_recovers(encoded, monkeypatch):
     assert max(len(w) for w, _, _ in spy.recovers) == 4
 
 
+def test_recover_pieces_counter_counts_one_a_host_recover(encoded,
+                                                        monkeypatch):
+    """SeaweedFS_ec_recover_pieces_total moves by the pieces a recover's
+    transform was enqueued in: one a recover off the card."""
+    from seaweedfs_tpu_torch.stats import metrics
+    if not metrics.HAVE_PROMETHEUS:
+        pytest.skip("prometheus_client is not installed")
+    d, contents, _ = encoded
+    lost = (0, 3, 7, 9)
+    ev = open_port(d, lost)
+    spy = Spy(monkeypatch, ev)
+
+    def pieces():
+        return {p: metrics.REGISTRY.get_sample_value(
+            "SeaweedFS_ec_recover_pieces_total", {"path": p}) or 0.0
+            for p in ("host", "card")}
+
+    try:
+        nid, _, _ = row_group_needle(ev, contents, lost, rows=4)
+        before = pieces()
+        assert ev.read_needle(nid, nid * 11).data == contents[nid]
+        after = pieces()
+    finally:
+        ev.close()
+    assert spy.recovers
+    assert {p: after[p] - before[p] for p in after} == {
+        "host": float(len(spy.recovers)), "card": 0.0}
+
+
 @pytest.mark.gpu
 def test_an_8_mib_part_launches_once_a_row_on_the_card(tmp_path,
                                                        monkeypatch):
     """With data shards {0, 3, 7, 9} lost and the default 1 MiB blocks, a
-    GET of an 8 MiB part raises K1's launch count by its card recovers,
-    one a stripe row, not one a lost interval; the card copies out the
-    recovered bytes and no more, and the part reads back whole."""
+    GET of an 8 MiB part makes one card recover a stripe row, not one a
+    lost interval, each a chain that launches K1 once a piece of its
+    plan; the card copies out the recovered bytes and no more, and the
+    part reads back whole."""
     import json
 
     import torch
@@ -317,7 +347,10 @@ def test_an_8_mib_part_launches_once_a_row_on_the_card(tmp_path,
                                      ProfilerActivity.CUDA]) as prof:
                 n = ev.read_needle(nid, nid)
                 torch.cuda.synchronize()
-            assert gf256_cuda.launches - before == len(card)
+            # one chain a stripe row, one K1 launch a piece of it
+            assert gf256_cuda.launches - before == sum(
+                len(gf256_cuda.piece_bounds(size)) - 1
+                for _, size in card)
             assert n.data == parts[nid]
             path = str(tmp_path / f"trace{nid}.json")
             prof.export_chrome_trace(path)

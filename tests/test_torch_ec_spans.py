@@ -7,9 +7,10 @@ fetched counts) and the recover itself with the path its transform took
 (`ec.recover`, `path` "host" or "card"), all under the request's root.
 A lock held by another thread shows as a wait at least as long; an
 untraced read records nothing; on the card a recover also records its
-staging (`ec.stage`), its two copy enqueues (`ec.h2d`, `ec.d2h`) and the
-wait for the card (`ec.wait`). The bytes served are the bytes written in
-every case."""
+staging (`ec.stage`), the one native call that enqueues its chain of
+copies and kernels (`ec.h2d`) and the wait for the card (`ec.wait`).
+Every recover names the pieces its transform was enqueued in (`pieces`).
+The bytes served are the bytes written in every case."""
 
 import os
 import random
@@ -21,6 +22,7 @@ import pytest
 from seaweedfs_tpu_torch.ec import pipeline as pl
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
 from seaweedfs_tpu_torch.ec.locate import locate_data
+from seaweedfs_tpu_torch.ops.gf256_cuda import piece_bounds
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
@@ -163,6 +165,21 @@ def test_recover_spans_name_the_rows_they_decode(lost_dir, ring,
     assert sum(len(r) for r in got) > 0
 
 
+def test_host_recover_spans_name_one_piece(lost_dir, ring, monkeypatch):
+    """Off the card every recover's transform is one piece: the
+    `ec.recover` span says so in `pieces`."""
+    monkeypatch.setenv(pl.BACKEND_ENV, "cpu")
+    d, contents = lost_dir
+    ev = open_volume(d)
+    try:
+        by_trace = traced_reads(ev, contents)
+    finally:
+        ev.close()
+    pieces = [s["attrs"]["pieces"] for spans in by_trace.values()
+              for s in spans if s["op"] == "recover"]
+    assert pieces and set(pieces) == {1}
+
+
 def test_a_held_lock_shows_as_its_wait(lost_dir, ring, monkeypatch):
     monkeypatch.setenv(pl.BACKEND_ENV, "cpu")
     d, contents = lost_dir
@@ -234,10 +251,13 @@ def test_card_recover_records_staging_copies_and_wait(lost_dir, ring,
             kids = [c["op"] for c in spans if c["parent"] == s["span"]]
             if s["attrs"]["path"] == "card":
                 assert s["bytes"] >= SMALL_RECOVER
-                # np.stack, np.ascontiguousarray, pin_memory, the pinned
-                # output; one enqueue each way; one wait
+                # the survivors copied once into the pinned piece-major
+                # input, the pinned output; one enqueue of the whole
+                # chain; one wait
                 assert sorted(kids) == sorted(
-                    ["gather"] + ["stage"] * 4 + ["h2d", "d2h", "wait"])
+                    ["gather"] + ["stage"] * 2 + ["h2d", "wait"])
+                assert s["attrs"]["pieces"] == len(
+                    piece_bounds(s["bytes"] // s["attrs"]["rows"])) - 1
             else:
                 assert s["bytes"] < SMALL_RECOVER
                 assert kids == ["gather"]

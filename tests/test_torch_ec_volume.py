@@ -522,13 +522,13 @@ def test_recover_routing_follows_small_recover_bytes(ec_dir, monkeypatch):
     assert ev.encoder(512).device.type == "cpu"
     assert isinstance(ev.encoder(), TorchEncoder)
     seen = []
-    real = ecv._transform_buffers
+    real = ecv._transform_buffers_async
 
     def spy(encoder, coeff, buffers):
         seen.append((type(encoder).__name__, len(buffers[0])))
         return real(encoder, coeff, buffers)
 
-    monkeypatch.setattr(ecv, "_transform_buffers", spy)
+    monkeypatch.setattr(ecv, "_transform_buffers_async", spy)
     ev.shards.pop(0).close()
     try:
         for nid, data in contents.items():
